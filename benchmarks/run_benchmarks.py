@@ -78,7 +78,7 @@ def bench_tgv2d():
     )
     from taylor_green_vortex_2d import compute_convergence
 
-    # f32 on TPU (f64 unsupported there); accuracy floor is then ~1e-4
+    # f32 (the production dtype); accuracy floor is then ~1e-4
     errs = compute_convergence((32, 64, 128), dtype=jnp.float32)
     rates = [float(np.log2(errs[i] / errs[i + 1])) for i in range(len(errs) - 1)]
     emit(

@@ -1,10 +1,11 @@
-"""ins_tpu: TPU-native incompressible Navier-Stokes framework.
+"""ins_tpu: accelerator-native incompressible Navier-Stokes framework.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of
+A from-scratch JAX/XLA re-design with the capabilities of
 IncompressibleNavierStokes.jl (energy-conserving staggered finite volumes,
 four BC families, Boussinesq temperature, explicit RK time integration with
 pressure projection, FFT/CG/direct Poisson solvers, Smagorinsky LES, full
-differentiability, and a neural-closure training stack), built TPU-first:
+differentiability, and a neural-closure training stack), built for the
+accelerator first:
 component-first field layout, fused stencils, jitted scan loops, sharding
 over device meshes.
 """

@@ -1,6 +1,6 @@
 """Boundary conditions: types, ghost metadata rules, and ghost-cell fills.
 
-TPU-native re-design of IncompressibleNavierStokes.jl
+Re-design of IncompressibleNavierStokes.jl
 `src/boundary_conditions.jl:1-516`. The four BC families are plain frozen
 dataclasses used as *static* pytree metadata; the ghost-cell fills are pure
 functions built from static slice updates (`x.at[plane].set(...)`) which XLA
@@ -9,7 +9,7 @@ fuses into the surrounding stencil computation. Hand-written pullbacks
 differentiates the slice updates exactly.
 
 Conventions (0-based):
-- Velocity fields have shape `(D, *N)` (component-first for TPU tiling),
+- Velocity fields have shape `(D, *N)` (component-first),
   scalar fields `(N...)`, where `N` includes one ghost layer per side
   (two on the left for `PressureBC`, cf. reference `padghost!` at
   `src/boundary_conditions.jl:39-61`).
@@ -230,9 +230,8 @@ def apply_bc_temp(temp, t, setup):
 # Fill primitives.
 #
 # All ghost fills are expressed as gathers (`jnp.take` with a static wrap
-# index) and masked selects — never scatter-updates. Besides being the
-# faster TPU pattern (one fused gather instead of two scatters), this
-# avoids an XLA GSPMD partitioner miscompile observed with
+# index) and masked selects — never scatter-updates. Besides fusing into
+# one gather instead of two scatters, this avoids an XLA GSPMD partitioner miscompile observed with
 # `x.at[plane].set(x[other_plane])` self-copies on sharded arrays.
 # --------------------------------------------------------------------------
 

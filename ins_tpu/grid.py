@@ -1,6 +1,6 @@
 """Staggered Cartesian grid metadata.
 
-TPU-native re-design of IncompressibleNavierStokes.jl `src/grid.jl:100-276`.
+Re-design of IncompressibleNavierStokes.jl `src/grid.jl:100-276`.
 All 1-D metadata arrays (coordinates, widths, interpolation weights) are
 precomputed with numpy at setup time and stored as JAX arrays (pytree
 children); index ranges (`Iu`, `Ip`) are static 0-based half-open boxes

@@ -1,4 +1,4 @@
-"""Neural closure models for LES (TPU-native NeuralClosure equivalent).
+"""Neural closure models for LES (NeuralClosure equivalent).
 
 Re-design of IncompressibleNavierStokes.jl `lib/NeuralClosure` on
 flax/optax: CNN, FNO, and p4 group-equivariant CNN closures; face/volume

@@ -2,7 +2,7 @@
 
 Re-design of IncompressibleNavierStokes.jl
 `lib/NeuralClosure/src/closure.jl`. NN tensors are batch-first NHWC
-`(nsample, *nx, D)` (XLA-native conv layout on TPU); solver fields are
+`(nsample, *nx, D)` (XLA-native conv layout); solver fields are
 component-first ghosted `(D, *N)`. `wrappedclosure` adapts between them.
 """
 

@@ -3,39 +3,30 @@
 Circular-padded convolution stack on collocated velocities, output
 differentiated back to staggered faces.
 
-TPU performance notes (measured on v5e, 128^3, radii (2,2,2), channels
-(24,24,3); carry-dependent scan timing so XLA cannot hoist the convs —
-see benchmarks/conv_probe.py; table in BASELINE.md):
+Implementation notes (design choices; their speed on the GPU is not
+measured yet):
 
-1. **Tap folding.** XLA's TPU convolution is contraction-starved when
-   the input-channel count is small (3..24 closure channels leave most
-   of the MXU's 128-wide contraction dim empty): the plain stack runs
-   at 4.4 TFLOP/s.  Folding kernel taps into the input-channel dim
-   helps: for a fold of the x-tap dim, ``g[..., (dx, ci)] =
-   h_pad[x + dx, ..., ci]`` (kx shifted copies concatenated on
-   channels) turns the (5,5,5)xCin conv into a (1,5,5)x(5 Cin) conv
-   with identical FLOPs — measured 7.2 TFLOP/s for the stack (1.64x).
-   Tap dims are folded (x, then y, then z) until the folded channel
-   count reaches 64; folding further measured slower (the concat
-   traffic grows as k^folds while the MXU fill saturates).  Weight
+1. **Tap folding.** Kernel taps are folded into the input-channel dim
+   (x, then y, then z) until the folded channel count reaches 64: for a
+   fold of the x-tap dim, ``g[..., (dx, ci)] = h_pad[x + dx, ..., ci]``
+   (kx shifted copies concatenated on channels) turns the (5,5,5)xCin
+   conv into a (1,5,5)x(5 Cin) conv with identical FLOPs but a wider
+   contraction for the small closure channel counts (3..24).  Weight
    tensors keep their canonical (kx,ky,kz,Cin,Cout) parameter shape;
    the fold is a trace-time transpose+reshape.
 
-2. **bf16 taps.** TPU convs at DEFAULT precision already multiply in
-   bf16 (f32 accumulate), so the folded copies are *stored* bf16 too —
-   identical numerics and wall-clock (measured), half the memory
-   footprint of the fold concat (which is what matters at 256^3).
+2. **bf16 taps.** By default the folded copies are stored and multiplied
+   in bf16 with f32 accumulation (`compute_dtype`), which halves the
+   memory footprint of the fold concat.  An f32 `compute_dtype` runs the
+   convolutions at `Precision.HIGHEST` (no TF32).
 
-3. **x-chunking** (memory, large grids): XLA keeps the feature dim
-   minor, so intermediates are lane-padded up to 128 channels; the
-   folded copies reach ~0.5 GB/layer at 128^3 and ~4 GB/layer at
-   256^3, and their backward-pass cotangents land in f32 — an HBM OOM
-   in the a-posteriori gradient (measured at 128^3).  Inputs with
-   ``nx >= chunk_min_nx`` are therefore evaluated in x-CHUNKS: the
-   field is circularly halo-padded by the stack's total receptive
-   radius once, and `lax.map` runs the conv stack slab by slab (VALID
-   in x), which bounds the temporaries to one chunk's worth in both
-   the forward and the backward pass.
+3. **x-chunking** (memory, large grids): the fold copies and their
+   backward-pass cotangents grow with the grid, so inputs with
+   ``nx >= chunk_min_nx`` are evaluated in x-CHUNKS: the field is
+   circularly halo-padded by the stack's total receptive radius once,
+   and `lax.map` runs the conv stack slab by slab (VALID in x), which
+   bounds the temporaries to one chunk's worth in both the forward and
+   the backward pass.
 """
 
 from __future__ import annotations
@@ -44,7 +35,6 @@ import jax
 import jax.numpy as jnp
 import flax.linen as nn
 
-from ..ops import convkernels as ck
 from .closure import collocate, create_closure, decollocate
 
 __all__ = ["cnn", "CNN"]
@@ -56,7 +46,7 @@ _DN = {
 }
 
 # Fold kernel-tap dims into input channels until the folded channel
-# count reaches this (MXU contraction-dim fill; see module docstring).
+# count reaches this (contraction width; see module docstring).
 _FOLD_TARGET = 64
 
 
@@ -101,94 +91,19 @@ def _fold_conv(h, w, r, pad_axes, compute_dtype):
         wf = jnp.moveaxis(wf, 0, -3)
         wf = wf.reshape(*wf.shape[:-3], wf.shape[-3] * wf.shape[-2], cout)
     kernel = wf.reshape((1,) * f + wf.shape)
-    # Same-dtype conv (the MXU still accumulates f32 for bf16 inputs);
-    # a mixed preferred_element_type breaks the conv transpose rule.
+    # Same-dtype conv (bf16 inputs still accumulate in f32); a mixed
+    # preferred_element_type breaks the conv transpose rule.  f32 and
+    # f64 convs run at HIGHEST: TF32 would keep ~3 decimal digits.
+    prec = (
+        jax.lax.Precision.DEFAULT
+        if jnp.dtype(compute_dtype).itemsize < 4
+        else jax.lax.Precision.HIGHEST
+    )
     out = jax.lax.conv_general_dilated(
         g, kernel, (1,) * D, "VALID", dimension_numbers=_DN[D],
+        precision=prec,
     )
     return out.astype(h.dtype)
-
-
-def _actname(act):
-    """Map an activation callable to a Pallas-fusable name, or None.
-
-    The concrete probe must escape any ambient trace
-    (``ensure_compile_time_eval``): CNN.__call__ runs under jit/grad in
-    production, and a probe that raises there would silently disable
-    the Pallas path exactly where it matters."""
-    if act in (jnp.tanh, jax.numpy.tanh):
-        return "tanh"
-    try:  # identity probe on a concrete array
-        import numpy as np
-
-        probe = np.asarray([[0.625, -1.5]], np.float32)
-        with jax.ensure_compile_time_eval():
-            out = np.asarray(act(jnp.asarray(probe)))
-        if np.array_equal(out, probe):
-            return "id"
-        if np.allclose(out, np.tanh(probe)):
-            return "tanh"
-    except Exception:
-        pass
-    return None
-
-
-def _pallas_conv_ok(spatial, r, cin, cout, dtype):
-    """Gate for the fused-fold Pallas conv path (3D only): sublane-tile
-    z extent, packable taps, and a VMEM-feasible y strip both ways
-    (ops/convkernels.py `fused_supported`)."""
-    if len(spatial) != 3 or r < 1:
-        return False
-    if dtype not in (jnp.float32, jnp.bfloat16):
-        return False
-    ny, nz = spatial[1], spatial[2]
-    return ck.fused_supported(ny, nz, cin, cout, 2 * r + 1)
-
-
-def _zfold(h, r):
-    """Fold the z (minor) kernel taps into channels: circular z-pad by r,
-    concat the k z-shifted slices (dz major) and zero-pad to the lane
-    tile.  Pure XLA (one fused copy); differentiable."""
-    k = 2 * r + 1
-    cin = h.shape[-1]
-    nz = h.shape[2]
-    hz = jnp.concatenate([h[:, :, -r:], h, h[:, :, :r]], axis=2)
-    g = jnp.concatenate(
-        [hz[:, :, dz : dz + nz] for dz in range(k)], axis=-1
-    )
-    kc = ck.lanes(k * cin)
-    if kc != k * cin:
-        g = jnp.pad(g, ((0, 0),) * 3 + ((0, kc - k * cin),))
-    return g
-
-
-def _fold_w(w, dtype):
-    """Canonical (kx, ky, kz, cin, cout) weights -> z-folded
-    (kx, ky, lanes(kz*cin), cout), rows zero-padded (dz major, matching
-    _zfold's concat order)."""
-    kx, ky, kz, cin, cout = w.shape
-    w2 = w.reshape(kx, ky, kz * cin, cout)
-    kc = ck.lanes(kz * cin)
-    if kc != kz * cin:
-        w2 = jnp.pad(w2, ((0, 0), (0, 0), (0, kc - kz * cin), (0, 0)))
-    return w2.astype(dtype)
-
-
-def _pallas_conv_layer(h, w, b, r, pad_x, actname, compute_dtype,
-                       interpret):
-    """One closure conv layer on the tap-matmul Pallas path (probe use;
-    production rides `_fused_stack`): XLA z-fold + x/y wrap pads, then
-    the pack-tile/tap-matmul kernel with fused bias + act.
-    `h`: per-sample (nx, ny, nz, cin); returns (nx, ny, nz, cout)."""
-    cout = w.shape[-1]
-    g = _zfold(h.astype(compute_dtype), r)
-    pads = ((r, r) if pad_x else (0, 0), (r, r), (0, 0), (0, 0))
-    g = jnp.pad(g, pads, mode="wrap")
-    w2 = _fold_w(w, compute_dtype)
-    bias = (jnp.zeros((cout,), w.dtype) if b is None else b)
-    layer = ck.make_conv_layer(actname, b is not None, interpret=interpret)
-    y = layer(g, w2, bias)
-    return y[..., :cout].astype(h.dtype)
 
 
 class CNN(nn.Module):
@@ -199,18 +114,9 @@ class CNN(nn.Module):
     dtype: object = jnp.float32
     chunk_x: int = 16  # x-chunk size for large 3D inputs
     chunk_min_nx: int = 128  # chunk only at/above this x extent
-    # conv compute dtype; None = bf16 when dtype is f32 (TPU convs
-    # multiply in bf16 at DEFAULT precision anyway — docstring note 2)
+    # conv compute dtype; None = bf16 when dtype is f32 (docstring
+    # note 2)
     compute_dtype: object = None
-    # Pallas conv kernels (ops/convkernels.py): "auto" (default) = the
-    # fused-fold kernels whenever the backend is TPU and the shapes
-    # qualify (`fused_supported`), False = XLA fold path, True = force
-    # (interpret mode off-TPU — virtual-device testing).  History: the
-    # earlier tap-matmul/pack-tile kernels beat XLA per-layer (8.7 vs
-    # 13 ms for 24->24 at 128^3) but their XLA-side z-fold glue
-    # (15.6 ms/layer) ate the win; the fused-fold kernel folds in VMEM
-    # and wrap-pads in the DMA, so nothing remains outside the kernel.
-    pallas: object = "auto"
 
     @nn.compact
     def __call__(self, x):
@@ -239,48 +145,7 @@ class CNN(nn.Module):
         if cdt is None:
             cdt = jnp.bfloat16 if self.dtype == jnp.float32 else self.dtype
 
-        # Per-layer Pallas eligibility (all-or-nothing keeps the two
-        # code paths from interleaving layout conversions).
-        spatial = x.shape[1:-1]
-        actnames = [_actname(a) for a in self.activations]
-        want_pl = (jax.default_backend() == "tpu"
-                   if self.pallas == "auto" else bool(self.pallas))
-        if not want_pl:
-            use_pl = False
-        else:
-            cins = (D,) + tuple(self.channels[:-1])
-            use_pl = all(
-                _pallas_conv_ok(spatial, r, cins[i], self.channels[i],
-                                cdt)
-                and actnames[i] is not None
-                for i, r in enumerate(self.radii)
-            )
-        interpret = bool(use_pl) and jax.default_backend() != "tpu"
-
-        def stack1(h):
-            # per-sample fused-fold stack: (nx, ny, nz, c) -> 128-lane
-            # carry between layers (lanes >= cout garbage by kernel
-            # contract; each layer reads only its cin lanes)
-            in_dt = h.dtype
-            hp = jnp.pad(h.astype(cdt),
-                         ((0, 0),) * 3 + ((0, 128 - h.shape[-1]),))
-            for i, r in enumerate(self.radii):
-                layer = ck.make_fused_layer(
-                    actnames[i], bs[i] is not None,
-                    cin=(D if i == 0 else self.channels[i - 1]),
-                    cout=self.channels[i], k=2 * r + 1,
-                    interpret=interpret,
-                )
-                bias = (jnp.zeros((self.channels[i],), self.dtype)
-                        if bs[i] is None else bs[i])
-                hp = layer(hp, ws[i], bias)
-            return hp[..., : self.channels[-1]].astype(in_dt)
-
         def stack(h, pad_x):
-            if use_pl:
-                if h.shape[0] == 1:
-                    return stack1(h[0])[None]
-                return jax.lax.map(stack1, h)
             for i, r in enumerate(self.radii):
                 pad_axes = (pad_x,) + (True,) * (D - 1)
                 h = _fold_conv(h, ws[i], r, pad_axes, cdt)
@@ -292,11 +157,7 @@ class CNN(nn.Module):
         R = sum(self.radii)
         nx = x.shape[1]
         cx = self.chunk_x
-        # The fused Pallas path never chunks: the kernels stream planes
-        # (VMEM bounded by the y strip) and its intermediates are one
-        # bf16 128-lane field per layer — the receptive-field fold
-        # copies that forced chunking on the XLA path don't exist.
-        if D == 3 and not use_pl and nx >= self.chunk_min_nx and nx % cx == 0:
+        if D == 3 and nx >= self.chunk_min_nx and nx % cx == 0:
             # x-chunked evaluation (see module docstring)
             xp = jnp.pad(
                 x, [(0, 0), (R, R)] + [(0, 0)] * D, mode="wrap"
@@ -317,13 +178,12 @@ class CNN(nn.Module):
 
 
 def cnn(*, setup, radii, channels, activations, use_bias, rng,
-        compute_dtype=None, pallas="auto"):
+        compute_dtype=None):
     """Build `(closure, theta)` (reference cnn.jl:5-48).
     ``compute_dtype``: conv multiply dtype — None (default) uses bf16
-    for f32 models (TPU convs multiply in bf16 at DEFAULT precision
-    anyway); pass ``jnp.float32`` for bitwise-deterministic f32 convs
-    (e.g. cross-device gradient parity checks).  ``pallas``: see
-    `CNN.pallas` — "auto" rides the fused-fold kernels on TPU."""
+    with f32 accumulation for f32 models; pass ``jnp.float32`` for f32
+    convs at `Precision.HIGHEST` (e.g. cross-device gradient parity
+    checks)."""
     g = setup.grid
     D = g.dim
     n = tuple(e - s for (s, e) in g.Iu[0])
@@ -334,7 +194,6 @@ def cnn(*, setup, radii, channels, activations, use_bias, rng,
         use_bias=tuple(use_bias),
         dtype=setup.dtype,
         compute_dtype=compute_dtype,
-        pallas=pallas,
     )
     return create_closure(
         model, rng=rng, sample_shape=(*n, D), dtype=setup.dtype

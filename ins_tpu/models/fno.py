@@ -54,9 +54,7 @@ class FourierLayer(nn.Module):
         keep = np.concatenate(
             [np.arange(self.kmax + 1), np.arange(K - self.kmax - 1, K)]
         )
-        from ..ops.dft import fftn, ifftn  # per-axis on TPU (see ops/dft.py)
-
-        xhat = fftn(x, axes=tuple(range(1, D + 1)))
+        xhat = jnp.fft.fftn(x, axes=tuple(range(1, D + 1)))
         for d in range(D):
             xhat = jnp.take(xhat, keep, axis=1 + d)
         Rc = R[..., 0] + 1j * R[..., 1]
@@ -71,7 +69,7 @@ class FourierLayer(nn.Module):
             z = jnp.concatenate(
                 [lo, jnp.zeros(pad_shape, z.dtype), hi], axis=axis
             )
-        z = jnp.real(ifftn(z, axes=tuple(range(1, D + 1)))).astype(x.dtype)
+        z = jnp.real(jnp.fft.ifftn(z, axes=tuple(range(1, D + 1)))).astype(x.dtype)
 
         return self.activation(y + z)
 

@@ -222,10 +222,9 @@ def _unrolled_errors(
     (SURVEY.md §7 "grad-through-scan memory").
 
     When the setup qualifies for the ghost-free fast path, the unroll
-    steps through `make_fast_timestep(differentiable=True)` — Pallas
-    forward kernels with custom-VJP roll-twin adjoints (`ops/diffkernels`)
-    instead of the ghosted slice graph, the TPU equivalent of the
-    reference's hand-written Enzyme adjoints for its hot kernels
+    steps through `make_fast_timestep` (a roll graph that JAX
+    differentiates natively) instead of the ghosted slice graph — where
+    the reference hand-writes Enzyme adjoints for its hot kernels
     (src/operators.jl:1621-1910)."""
     from ..ops.fastpath import (
         fastpath_applicable,
@@ -239,7 +238,7 @@ def _unrolled_errors(
     nt = u.shape[0]
     use_fast = fastpath_applicable(setup, method, psolver)
     if use_fast:
-        fast_step = make_fast_timestep(setup, method, differentiable=True)
+        fast_step = make_fast_timestep(setup, method)
         # interior-layout state: the ghosted DOF box shifts down by the
         # one-cell ghost border
         sl_state = (slice(None),) + tuple(

@@ -5,8 +5,8 @@ fields. Neighbor access is expressed as the same box shifted by +-1 in one
 dimension — a static slice, which XLA fuses with the surrounding arithmetic
 into a single loop over the box. This replaces the reference's
 KernelAbstractions Cartesian-index kernels (src/operators.jl:29-37) with
-XLA-native fused elementwise graphs; the true hot path additionally has a
-Pallas kernel (see ops/pallas_kernels.py).
+XLA-native fused elementwise graphs; the uniform periodic hot path drops
+the ghosts altogether (ops/fastpath.py).
 """
 
 from __future__ import annotations

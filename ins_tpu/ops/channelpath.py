@@ -6,7 +6,7 @@ src/operators.jl:634-690): x/y periodic uniform, z Dirichlet walls on a
 (possibly stretched) wall-normal grid, steady constant body force,
 explicit classic-row RK tableaus.
 
-Design (TPU-first, not a translation):
+Design (re-designed for the accelerator, not a translation):
 
 - **Interior layout, pinned wall slot.** Velocity is stored ghost-free
   as ``(3, nx, ny, nz)``.  u/v occupy all nz cell-centers; w's z-DOFs
@@ -23,12 +23,11 @@ Design (TPU-first, not a translation):
   precomputed 1-D vectors over interior slots, padded with zeros at
   the non-DOF w slot so masked terms vanish by construction.
 - **Projection by fast diagonalization** (`ops/fdm.py`): x/y Fourier
-  and z wall eigenbases are all just dense MXU contractions — the
-  stretched-wall equivalent of the periodic path's eigen solve.
+  and z wall eigenbases are all dense tensor contractions — the
+  stretched-wall equivalent of the periodic path's spectral solve.
 
-The roll-based implementation below is the f64-exact ground truth for
-the Pallas slab kernels in `ops/channel_kernels.py` and the CPU test
-target (parity vs the ghosted slice graph, tests/test_channelpath.py).
+The step is a roll graph that XLA fuses; its CPU tests check parity
+against the ghosted slice graph (tests/test_channelpath.py).
 """
 
 from __future__ import annotations
@@ -94,12 +93,11 @@ def channelpath_applicable(setup, method=None):
     if method is not None:
         if not isinstance(method, ExplicitRungeKuttaMethod):
             return False
-        from .fastpath import _classic_lowstorage_rows
-
-        # 1-stage tableaus qualify trivially (no intermediate rows);
-        # _classic_lowstorage_rows gates them out only because the
-        # periodic merged chain has no payoff there.
-        if method.nstage != 1 and not _classic_lowstorage_rows(method):
+        # The step keeps one b-row accumulator, so every intermediate
+        # (shifted-tableau) row may hold only its OWN stage's k — classic
+        # RK44 and friends; 1-stage tableaus qualify trivially.
+        A, ns = method.A, method.nstage
+        if any(A[i][j] != 0.0 for i in range(ns - 1) for j in range(i)):
             return False
     return True
 
@@ -253,8 +251,7 @@ def make_channel_metrics(setup):
 
 
 # --------------------------------------------------------------------------
-# Roll-based reference implementation (ground truth for the Pallas
-# kernels; also the CPU-testable twin)
+# Roll-based operators on the interior layout
 # --------------------------------------------------------------------------
 
 
@@ -441,20 +438,15 @@ def _interior_force(setup):
     return None
 
 
-class _ChannelCtx(NamedTuple):
-    met: Any
-    visc: float
-    psolve: Any
-    force: Any
-    A: Any
-    ns: int
-    use_pallas: bool
-    kkw: dict
+def make_channel_timestep(setup, method, *, nrefine=None):
+    """Build `step(state, dt, theta) -> state` on the interior channel
+    layout (see module docs).  Classic-row explicit RK only (the
+    default RK44 and friends).
 
-
-def _channel_ctx(setup, method, nrefine, use_pallas, pallas_interpret):
-    """Shared preamble of the channel step builders: metrics, FDM
-    projection solve, steady force, tableau."""
+    ``nrefine``: iterative-refinement sweeps of the FDM projection
+    (default: 0 unless the working-dtype transforms are ill-conditioned
+    enough to lose the CG tolerance).
+    """
     assert channelpath_applicable(setup, method)
     from .fdm import fdm_solve_box, fdm_transform_roundoff
 
@@ -468,22 +460,13 @@ def _channel_ctx(setup, method, nrefine, use_pallas, pallas_interpret):
         # to lose that (measured: tanh-1.2 at nz=128 leaves the SAME
         # post-projection divergence with 0 sweeps as with 1).
         nrefine = 1 if fdm_transform_roundoff(setup) > 1e-4 else 0
-    # f32: 3-pass bf16 contractions — CG-tolerance accuracy (the
-    # divergence residual is stencil-roundoff-dominated either way,
-    # measured; see fdm_solve_box docs), ~0.5 ms/step faster at the
-    # 256x128x128 channel
-    solve_box = fdm_solve_box(
-        setup, precision="high" if dtype == jnp.float32 else "highest"
-    )
+    # Full-f32 contractions (see fdm_solve_box): measured on an H100,
+    # TF32 left 8.4e-4 of the divergence on the 256x128x128 channel,
+    # above the CG tolerance cited above; HIGHEST left 1.2e-6
+    solve_box = fdm_solve_box(setup)
     om = _om_box(setup, dtype)
     force = _interior_force(setup)
     A, ns = method.A, method.nstage
-
-    from .channel_kernels import channel_kernels_supported
-
-    if use_pallas == "auto":
-        use_pallas = channel_kernels_supported(setup)
-    kkw = dict(interpret=True) if (use_pallas and pallas_interpret) else {}
 
     def psolve(div):
         """Projection potential q from the interior divergence."""
@@ -493,35 +476,6 @@ def _channel_ctx(setup, method, nrefine, use_pallas, pallas_interpret):
             r = f - channel_laplacian_box(q, setup)
             q = q + solve_box(r)
         return q
-
-    return _ChannelCtx(
-        met=met, visc=visc, psolve=psolve, force=force, A=A, ns=ns,
-        use_pallas=use_pallas, kkw=kkw,
-    )
-
-
-def make_channel_timestep(setup, method, *, nrefine=None, use_pallas="auto",
-                          pallas_interpret=False):
-    """Build `step(state, dt, theta) -> state` on the interior channel
-    layout (see module docs).  Classic-row explicit RK only (the
-    default RK44 and friends).
-
-    ``nrefine``: iterative-refinement sweeps of the FDM projection
-    (default: 0 unless the working-dtype transforms are ill-conditioned,
-    see `_channel_ctx`).
-
-    ``use_pallas``: "auto" (Pallas slab kernels on TPU, rolls
-    elsewhere), True (force, with ``pallas_interpret`` for CPU tests)
-    or False.
-    """
-    ctx = _channel_ctx(setup, method, nrefine, use_pallas, pallas_interpret)
-    met, visc, psolve, force, A, ns, use_pallas, kkw = ctx
-
-    if use_pallas:
-        from .channel_kernels import (
-            channel_msd_3d,
-            channel_pressure_correct_3d,
-        )
 
     def step_roll(state, dt, theta):
         u, _, t, n = state
@@ -540,97 +494,4 @@ def make_channel_timestep(setup, method, *, nrefine=None, use_pallas="auto",
             u = channel_correct_roll(target, q, met)
         return state._replace(u=u, t=state.t + dt, n=state.n + 1)
 
-    def step_pallas(state, dt, theta):
-        u, _, t, n = state
-        ustart = u
-        acc = None  # accumulator starts at ustart (deduped)
-        for i in range(ns):
-            last = i == ns - 1
-            b = A[ns - 1][i]
-            us, acc, div = channel_msd_3d(
-                u, ustart, acc, met,
-                visc=visc,
-                ca=float(A[i][i]) if not last else 0.0,
-                cb=float(b),
-                dt=dt,
-                force=force,
-                div_of_acc=last,
-                **kkw,
-            )
-            target = acc if last else us
-            q = psolve(div)
-            u = channel_pressure_correct_3d(target, q, met, **kkw)
-        return state._replace(u=u, t=state.t + dt, n=state.n + 1)
-
-    return step_pallas if use_pallas else step_roll
-
-
-class ChannelHat(NamedTuple):
-    """Scan carry of the merged-projection channel step: the stepper
-    state with ``u`` holding the UNPROJECTED final-stage target, plus
-    the projection potential ``q`` — the corrected velocity
-    ``u - grad(q)/Delta_u`` is only materialized at chunk boundaries
-    (`from_hat`); inside the chunk each stage kernel reconstructs it in
-    VMEM (`channel_msd_3d(qrecon=...)`), saving the pressure-correct
-    pass's full HBM round-trip per stage (same design as the periodic
-    path's `fastpath.HatState`)."""
-
-    state: Any
-    q: Any
-
-
-def make_channel_timestep_hat(setup, method, *, nrefine=None,
-                              use_pallas="auto", pallas_interpret=False):
-    """Merged-projection channel step: returns ``(to_hat, step_hat,
-    from_hat)`` over a `ChannelHat` carry, or ``None`` when the Pallas
-    kernels are unavailable (the merge only pays on real hardware)."""
-    ctx = _channel_ctx(setup, method, nrefine, use_pallas, pallas_interpret)
-    met, visc, psolve, force, A, ns, use_pallas, kkw = ctx
-    if not use_pallas:
-        return None
-
-    from .channel_kernels import (
-        channel_msd_3d,
-        channel_pressure_correct_3d,
-    )
-
-    g = setup.grid
-    dtype = setup.dtype
-
-    def to_hat(s):
-        # q = 0 is an exact identity: u - grad(0) = u
-        return ChannelHat(state=s, q=jnp.zeros(tuple(g.Np), dtype))
-
-    def from_hat(h):
-        u = channel_pressure_correct_3d(h.state.u, h.q, met, **kkw)
-        return h.state._replace(u=u)
-
-    def step_hat(h, dt, theta):
-        s = h.state
-        t_prev, q_prev = s.u, h.q
-        ustart = acc = None
-        for i in range(ns):
-            last = i == ns - 1
-            b = float(A[ns - 1][i])
-            if i == 0 and ns > 1:
-                ustart, us, acc, div = channel_msd_3d(
-                    t_prev, None, None, met, visc=visc,
-                    ca=float(A[0][0]), cb=b, dt=dt, force=force,
-                    div_of_acc=False, qrecon=q_prev, emit_urec=True,
-                    **kkw,
-                )
-                target = us
-            else:
-                us, acc, div = channel_msd_3d(
-                    t_prev, ustart, acc, met, visc=visc,
-                    ca=0.0 if last else float(A[i][i]), cb=b, dt=dt,
-                    force=force, div_of_acc=last, qrecon=q_prev, **kkw,
-                )
-                target = acc if last else us
-            q_prev = psolve(div)
-            t_prev = target
-        s2 = s._replace(u=t_prev, t=s.t + dt, n=s.n + 1)
-        return ChannelHat(state=s2, q=q_prev)
-
-    return to_hat, step_hat, from_hat
-
+    return step_roll

@@ -5,7 +5,7 @@ Two forms, as in the reference:
 - **Natural-position form** (preferred; IncompressibleNavierStokes.jl
   `src/eddyviscosity.jl:1-183`): strain components live as D(D+1)/2 scalar
   fields at their natural staggered positions — structure-of-arrays, no
-  tensor-valued elements, ideal for TPU fusion.
+  tensor-valued elements, which XLA fuses into loop kernels.
 - **Pressure-point form** (`smagorinsky_closure`, reference
   src/operators.jl:1135-1305): full DxD stress tensor at pressure points
   with BC fill and interpolated tensor divergence.
@@ -158,7 +158,7 @@ def smagorinsky_closure_natural(setup):
     strain/viscosity/stress fields are wrapped on periodic dimensions
     (see `_wrap_ghosts`); the returned closure is tagged with
     ``kind = "smagorinsky_natural"`` so the uniform-periodic fast path
-    can swap in its fused Pallas twin."""
+    can swap in its ghost-free roll twin."""
 
     def closure(u, theta):
         S = strain_natural(u, setup)
@@ -176,8 +176,7 @@ def smagorinsky_natural_interior(u, theta, dxs):
     """Natural-form Smagorinsky on ghost-free *uniform periodic* interior
     fields (the fast-path layout; any D): same math as
     `smagorinsky_closure_natural` with every stencil shift a circular
-    roll.  Twin of the fused Pallas kernel `smagorinsky_force_3d` and the
-    oracle for its tests."""
+    roll."""
     D = u.shape[0]
 
     def rp(v, d):

@@ -2,12 +2,12 @@
 
 The reference carries ghost cells on every field and refills them around
 each operator (src/operators.jl:13-33) — an artifact of its kernel model.
-On a uniform periodic grid the TPU-native formulation drops the ghost
-layer entirely: every stencil shift is a circular `jnp.roll` on the
-interior field (which XLA fuses and, under a sharded mesh, lowers to
-collective-permutes), there are no BC fills, no scatters and no padding
-in the hot loop. Measured ~2.3x faster per RK44 step at 128^3 than the
-ghosted slice-graph path on TPU v5e, identical to f32 rounding.
+On a uniform periodic grid the formulation here drops the ghost layer
+entirely: every stencil shift is a circular `jnp.roll` on the interior
+field (which XLA fuses into loop kernels and, under a sharded mesh,
+lowers to collective-permutes), there are no BC fills, no scatters and
+no padding in the hot loop, and the pressure projection is one real FFT
+pair (cuFFT on the GPU).
 
 `solve_unsteady` dispatches here automatically when the setup qualifies;
 states cross the boundary via strip (drop ghosts) / reghost (periodic
@@ -16,15 +16,12 @@ wrap pad, which *is* the periodic BC fill).
 
 from __future__ import annotations
 
-from functools import partial
-from typing import Any, NamedTuple
-
-import jax
 import jax.numpy as jnp
 import numpy as np
 
 from ..time_steppers.methods import ExplicitRungeKuttaMethod, LMWray3
 from ..time_steppers.step import StepperState
+from .pressure import spectral_inverse_laplacian
 
 __all__ = [
     "fastpath_applicable",
@@ -34,25 +31,9 @@ __all__ = [
     "reghost_scalar",
     "strip_state",
     "reghost_state",
+    "convdiff_roll",
     "make_fast_timestep",
-    "make_fast_timestep_hat",
-    "HatState",
 ]
-
-
-class HatState(NamedTuple):
-    """Scan carry for the step-boundary-merged chain: the velocity is
-    held as its UNCORRECTED form plus the eigen-basis pressure
-    ``(ut, qhat)`` — ``u = correct(ut, qhat)`` is only materialized at
-    chunk boundaries (`from_hat`), and stage 0 of each step reconstructs
-    it in VMEM (`pcmsd_hat_3d(streams=(RECON, ...))`), saving one full
-    velocity HBM round-trip per step."""
-
-    ut: Any
-    qhat: Any
-    temp: Any
-    t: Any
-    n: Any
 
 
 def fastpath_applicable(setup, method, psolver):
@@ -121,188 +102,54 @@ def _roll_m(v, d):  # v[I - e_d]
     return jnp.roll(v, 1, axis=d)
 
 
-def make_fast_timestep_hat(setup, method, *,
-                           projection_precision="manualhigh",
-                           stream_dtype=None,
-                           _fused_interpret=False):
-    """Step-boundary-merged fast path: returns ``(to_hat, step_hat,
-    from_hat)`` where the scan carry is a `HatState` holding
-    ``(ut, qhat)`` instead of u — the final pressure correction of step
-    s runs as stage 0 of step s+1 (`pcmsd_hat_3d` with a RECON base),
-    so the corrected velocity never round-trips HBM inside a scan
-    chunk.  ``to_hat`` enters with ``(ut=u, qhat=0)`` (an exact
-    identity: u - grad(0) = u); ``from_hat`` materializes u.  Returns
-    ``None`` when the merged chain is inapplicable (then use
-    `make_fast_timestep`).
-
-    ``stream_dtype`` (e.g. ``jnp.bfloat16``): storage dtype for the
-    hat carry's velocity-like arrays (ut, the emitted ustart, the
-    b-row accumulator) — all in-kernel arithmetic, qhat, and the
-    pass-B solve stay at the working dtype (f32 accumulate; see
-    `pcmsd_hat_3d`).  Halves the velocity-stream HBM traffic at a
-    ~bf16-roundoff fidelity cost per step; see BASELINE.md for the
-    measured speed/fidelity table before enabling in production."""
-    return make_fast_timestep(
-        setup, method, projection_precision=projection_precision,
-        _hat=True, _stream_dtype=stream_dtype,
-        _fused_interpret=_fused_interpret,
-    )
-
-
-def _classic_lowstorage_rows(method):
-    """True when every intermediate (shifted-tableau) row's only nonzero
-    is its OWN stage's k — classic RK44 and friends, and LMWray3 by
-    construction.  Gates both the fused-temperature stage chain and the
-    merged (b-row accumulator) chain, so it must be computed ONCE."""
-    if isinstance(method, ExplicitRungeKuttaMethod):
-        A, ns = method.A, method.nstage
-        return ns >= 2 and all(
-            A[i][j] == 0.0 for i in range(ns - 1) for j in range(i)
-        )
-    return True
+def convdiff_roll(u, visc, dxs):
+    """Convection + diffusion on ghost-free periodic-uniform interior
+    fields (any D) as a pure roll graph (reference
+    convectiondiffusion!, src/operators.jl:590-680, uniform periodic
+    case where all interpolation weights are 1/2)."""
+    D = u.shape[0]
+    F = []
+    for a in range(D):
+        ua = u[a]
+        f = 0.0
+        for b in range(D):
+            upb, umb = _roll_p(ua, b), _roll_m(ua, b)
+            f = f + (visc / dxs[b] ** 2) * (upb - 2.0 * ua + umb)
+            uab1 = 0.5 * (umb + ua)
+            uab2 = 0.5 * (ua + upb)
+            if a == b:
+                uba1, uba2 = uab1, uab2
+            else:
+                ub = u[b]
+                ub_pa = _roll_p(ub, a)
+                uba1 = 0.5 * (_roll_m(ub, b) + _roll_m(ub_pa, b))
+                uba2 = 0.5 * (ub + ub_pa)
+            f = f - (uab2 * uba2 - uab1 * uba1) / dxs[b]
+        F.append(f)
+    return jnp.stack(F)
 
 
-def make_fast_timestep(setup, method, *, projection_precision="manualhigh",
-                       differentiable=False, pallas_interpret=False,
-                       _hat=False, _stream_dtype=None,
-                       _fused_interpret=False,
-                       _force_roll=False):
+def make_fast_timestep(setup, method):
     """Build `step(state, dt, theta) -> state` on interior-layout velocity.
 
     Reproduces the math of the ghosted ERK/LMWray3 steppers (which mirror
     reference step_explicit_runge_kutta.jl / step_lmwray3.jl) for the
-    periodic-uniform case where all interpolation weights are 1/2.
-
-    ``projection_precision``: precision of the Poisson eigen-transform
-    matmuls on the Pallas path — "manualhigh" (default, ~Precision.HIGH,
-    projection residual ~4e-5, fastest) or "highest" (f32-exact,
-    residual ~2e-6, ~0.6 ms/solve slower at 256^3).  See
-    docs/manual/precision.md.
-
-    ``differentiable=True`` builds a reverse-mode-differentiable step for
-    training unrolls (the reference hand-writes Enzyme adjoints for its
-    hot kernels, src/operators.jl:1621-1910): the per-op Pallas kernels
-    run through their `ops.diffkernels` custom-VJP wrappers (Pallas
-    forward, roll-twin adjoint backward), the Poisson solve uses the
-    natively-differentiable MXU eigen-matmul form, and the fully-fused
-    stage chain (whose in-kernel transforms have no adjoint kernels) is
-    bypassed in favour of the per-op chain (~5% slower forward at 128³).
-
-    ``pallas_interpret=True`` forces the Pallas kernels on (in
-    interpreter mode) regardless of backend — virtual-device CPU testing
-    of the production kernel path.
+    periodic-uniform case where all interpolation weights are 1/2.  The
+    step is plain `jax.numpy`, so it is reverse-mode differentiable as it
+    stands (a-posteriori training unrolls step through it).
     """
     g = setup.grid
     D = g.dim
-    Np = g.Np
+    Np = tuple(int(n) for n in g.Np)
     dxs = tuple(float(np.asarray(g.delta[d])[0]) for d in range(D))
     vol = float(np.prod(dxs))
-
-    # Poisson solve: on accelerators, fast diagonalization in the real
-    # Fourier basis as MXU matmuls — ~2x faster than XLA's fused TPU FFT
-    # at 256^3 AND exact to f32 (the fused 3D FFT has 0.33 rel error
-    # there; see ops/dft.py). On CPU keep the FFT (faster, f64-capable).
-    from .dft import backend_is_cpu, make_poisson_mm
-
-    use_mm_poisson = not backend_is_cpu()
-    use_pallas_poisson = False
-    if use_mm_poisson:
-        # 3-pass Pallas formulation where supported (2.4 vs 3.2 ms/solve
-        # at 256^3; ops/poisson_pallas.py), else the XLA 6-contraction one
-        from .poisson_pallas import (
-            make_poisson_pallas,
-            poisson_pallas_supported,
-        )
-
-        use_pallas_poisson = (
-            poisson_pallas_supported(Np)
-            and jax.default_backend() == "tpu"
-            # training mode: the eigen-matmul form differentiates
-            # natively (transposed matmuls); the Pallas 3-pass form has
-            # no adjoint kernels
-            and not differentiable
-        )
-        if use_pallas_poisson:
-            poisson_mm = make_poisson_pallas(
-                Np, dxs, setup.dtype, precision=projection_precision
-            )
-        else:
-            poisson_mm = make_poisson_mm(Np, dxs, setup.dtype)
-    else:
-        # Spectral denominator (interior layout, rfft over last axis)
-        kmax = tuple(Np[d] // 2 + 1 if d == D - 1 else Np[d] for d in range(D))
-        denom = np.zeros(kmax)
-        for d in range(D):
-            k = np.arange(kmax[d])
-            denom += (
-                4 * vol * np.sin(np.pi * k / Np[d]) ** 2 / dxs[d] ** 2
-            ).reshape([-1 if i == d else 1 for i in range(D)])
-        denom[(0,) * D] = 1.0
-        inv = -1.0 / denom
-        # k=0 (zero-mean) pin folded into the multiplier (no runtime
-        # complex scatter).
-        inv[(0,) * D] = 0.0
-        inv_denom = jnp.asarray(inv, setup.dtype)
+    visc = 1 / setup.Re
 
     bodyforce_int = (
         strip_ghosts(setup.bodyforce_field)
         if setup.bodyforce_field is not None
         else None
     )
-
-    # Hot ops: hand-written Pallas kernels where supported (3D, lane-aligned
-    # extents, TPU backend) — one HBM pass each for conv-diff, the stage
-    # axpy+divergence, and the pressure correction (XLA lowers jnp.roll as
-    # an unfused copy on TPU, so the roll-graph glue is pure data movement);
-    # the roll graph remains the fallback (CPU, 2D, unaligned n).
-    from .pallas_kernels import (
-        RECON,
-        convdiff_interior_3d,
-        fused_cube_supported,
-        momentum_stage_divhat_3d,
-        pallas_supported,
-        pcmsd_hat_3d,
-        pcmsd_profitable,
-        pressure_correct_3d,
-        pressure_correct_qhat_3d,
-        stage_div_3d,
-    )
-
-    # ``_fused_interpret``: test hook — run the FULLY-FUSED stage chain
-    # (incl. the merged pcmsd/hat step functions) with every Pallas
-    # kernel in interpreter mode, so the step-function tableau algebra
-    # is CPU-testable against the roll-graph twin (the production gate
-    # requires a real TPU backend).
-    interp = bool(pallas_interpret)
-    fi = bool(_fused_interpret)
-    kw = dict(interpret=True) if (interp or fi) else {}
-    use_pallas = pallas_supported(setup) or ((interp or fi) and D == 3)
-    if _force_roll:
-        # Probe/test hook: build the pure roll-graph twin without
-        # monkeypatching the support gates (benchmarks/temp_probe.py).
-        interp = fi = False
-        use_pallas = False
-    if use_pallas:
-        visc_static = float(1.0 / np.asarray(setup.Re))
-        if differentiable:
-            from .diffkernels import (
-                make_convdiff_vjp,
-                make_pressure_correct_vjp,
-                make_stage_div_vjp,
-            )
-
-            _convdiff_k = make_convdiff_vjp(visc_static, dxs, interpret=interp)
-            _stage_div_k = make_stage_div_vjp(dxs, interpret=interp)
-            _pc_k = make_pressure_correct_vjp(dxs, interpret=interp)
-        else:
-            def _convdiff_k(u):
-                return convdiff_interior_3d(u, visc_static, dxs, **kw)
-
-            def _stage_div_k(base, k, coeff):
-                return stage_div_3d(base, k, coeff, dxs, **kw)
-
-            def _pc_k(ut, q):
-                return pressure_correct_3d(ut, q, dxs, **kw)
 
     # Boussinesq temperature (periodic BCs — checked by
     # `fastpath_applicable`): buoyancy in the momentum, temperature
@@ -319,46 +166,13 @@ def make_fast_timestep(setup, method, *, projection_precision="manualhigh",
             else None
         )
     # A natural-form Smagorinsky closure (tagged by
-    # `smagorinsky_closure_natural`) runs on the fast path as its
-    # ghost-free twin: the fused Pallas force kernel on the Pallas path,
-    # the roll-graph `smagorinsky_natural_interior` otherwise.  Untagged
-    # closures stay on the ghosted round trip.
+    # `smagorinsky_closure_natural`) runs as its ghost-free twin
+    # `smagorinsky_natural_interior`; untagged closures stay on the
+    # ghosted round trip.
     _smag = getattr(setup.closure_model, "kind", None) == "smagorinsky_natural"
-    # Fully-fused stage: momentum + tableau accumulation + divergence +
-    # the Poisson z/y transforms in ONE HBM pass per stage kernel.  A
-    # STEADY body force rides the kernel as one extra DMA stream
-    # (with_bf); a Smagorinsky LES force is ONE extra fused kernel pass
-    # per stage feeding the same stream.  Unsteady (time-dependent
-    # callable) forces and untagged closures stay on the momentum() path.
-    _no_bf = setup.bodyforce is None and setup.bodyforce_field is None
-    # Boussinesq temperature rides the fused stage kernels (buoyancy +
-    # temp RHS evaluated in-kernel, same tableau coefficients) — the
-    # kernels hold ONE tableau base/accumulator stream per field, which
-    # covers exactly the single-k-stream stage shapes: classic-row ERK
-    # tableaus (the b-row accumulator form) and LMWray3.
-    _lowstorage_rows = _classic_lowstorage_rows(method)
-    _fused_ok = not _force_roll and (
-        fused_cube_supported(setup)
-        or (fi and D == 3 and all(int(Np[d]) == int(Np[-1]) for d in range(D)))
-    )
-    use_fused_stage = (
-        _fused_ok
-        and (setup.closure_model is None or _smag)
-        and (_no_bf or bodyforce_int is not None)
-        and (tq is None or _lowstorage_rows)
-        and not differentiable
-        and (fi or not interp)
-    )
-
-    def convdiff(u):
-        if use_pallas:
-            return _convdiff_k(u)
-        from .diffkernels import convdiff_roll
-
-        return convdiff_roll(u, 1 / setup.Re, dxs)
 
     def momentum(u, temp, t, theta):
-        F = convdiff(u)
+        F = convdiff_roll(u, visc, dxs)
         if temp is not None:
             tavg = 0.5 * (temp + _roll_p(temp, gdir))
             F = F.at[gdir].add(alpha2 * tavg)
@@ -376,7 +190,7 @@ def make_fast_timestep(setup, method, *, projection_precision="manualhigh",
                 )
             F = F + strip_ghosts(jnp.stack(comps))
         if _smag:
-            from ..ops.eddyviscosity import smagorinsky_natural_interior
+            from .eddyviscosity import smagorinsky_natural_interior
 
             F = F + smagorinsky_natural_interior(u, theta, dxs)
         elif setup.closure_model is not None:
@@ -398,7 +212,6 @@ def make_fast_timestep(setup, method, *, projection_precision="manualhigh",
             dT1 = (temp - T_mb) / dxs[b]
             acc = acc + (-(uT2 - uT1) + alpha4 * (dT2 - dT1)) / dxs[b]
         if dis_coef is not None:
-            visc = 1 / setup.Re
             dacc = 0.0
             for b in range(D):
                 ub = u[b]
@@ -413,377 +226,35 @@ def make_fast_timestep(setup, method, *, projection_precision="manualhigh",
             acc = acc + dis_coef * dacc
         return acc
 
-    def solve_p(div):
-        if use_mm_poisson:
-            return poisson_mm(div)
-        ph = jnp.fft.rfftn(div) * inv_denom
-        return jnp.fft.irfftn(ph, div.shape).astype(setup.dtype)
-
     def project(u):
         div = sum((u[a] - _roll_m(u[a], a)) / dxs[a] for a in range(D)) * vol
-        p = solve_p(div)
+        inv_denom = spectral_inverse_laplacian(Np, dxs, setup.dtype)
+        ph = jnp.fft.rfftn(div) * inv_denom
+        p = jnp.fft.irfftn(ph, div.shape).astype(setup.dtype)
         G = jnp.stack([(_roll_p(p, a) - p) / dxs[a] for a in range(D)])
         return u - G
-
-    def stage_project(base, k, coeff):
-        """Projected stage update P(base + coeff*k). On the Pallas path the
-        axpy+divergence and the pressure correction each run as one fused
-        HBM pass; otherwise the roll graph."""
-        if use_pallas:
-            ut, div = _stage_div_k(base, k, coeff)
-            return _pc_k(ut, solve_p(div))
-        return project(base + coeff * k)
-
-    # Fully-fused projection: the stage kernel emits divhat (z/y-forward
-    # transform fused in) and the correction kernel consumes qhat
-    # (z/y-inverse fused in), so the Poisson solve is ONE standalone HBM
-    # pass (pass B).  `pallas_supported` already requires the
-    # lane-aligned cube these kernels need, so the fused projection and
-    # the fused stage share one gate (applies at 128^3 too: 2.81 vs
-    # 2.83/2.96 ms/step measured).
-    use_fused_proj = use_fused_stage
-    if use_fused_proj:
-        from .poisson_pallas import make_fused_projection
-
-        proj = make_fused_projection(
-            Np, dxs, setup.dtype, precision=projection_precision, **kw
-        )
-
-    _smag_d2 = float(sum(d * d for d in dxs)) if _smag else None
-
-    def smag_arg(theta):
-        """Fused-Smagorinsky kernel argument: the force is computed IN
-        the stage kernel from a widened u window (no separate force
-        pass, no HBM round-trip)."""
-        return (theta, _smag_d2) if _smag else None
-
-    def temp_arg(T, tstart=None, tacc=None):
-        """Fused-kernel temperature argument: the current-stage temp
-        (RHS input), the tableau base stream (None: elided, stage 0),
-        and the optional separate b-row accumulator base."""
-        if T is None:
-            return None
-        return (T, tstart, tacc, gdir, alpha2, alpha4, dis_coef)
-
-    def fused_stage_hat(u, streams, coeffs, *, force, emit_k=True,
-                        usnew_coeff=None, usnew_base=None, smag=None,
-                        temp=None):
-        """momentum + tableau accumulation + divergence in one kernel
-        pass, then the Poisson pass B: returns
-        (k|None, ut, qhat, usnew|None[, temp_next, tempnew|None]) with
-        the pressure correction DEFERRED (apply via `correct`, or let
-        the next stage's merged kernel reconstruct u in VMEM).
-        ``streams`` is (ustart, k_j...) with ``coeffs`` their tableau
-        coefficients plus the new k's coefficient last (the base axpy
-        never materializes in HBM).  ``force`` is the stage's extra
-        force stream (the steady body force); ``smag`` fuses the
-        Smagorinsky force (see `smag_arg`); ``temp`` (a `temp_arg`
-        tuple) rides the Boussinesq temperature on the same pass.
-        ``emit_k=False`` skips the k write (final stages);
-        ``usnew_coeff`` fuses the low-storage accumulator update
-        ``base + c*k`` as an extra kernel output (base = ``usnew_base``
-        if given, else ustart)."""
-        res = momentum_stage_divhat_3d(
-            u, streams, coeffs, visc_static, dxs,
-            proj["Vinv"], proj["VinvT"],
-            emit_k=emit_k, usnew_coeff=usnew_coeff,
-            bodyforce=force, usnew_base=usnew_base,
-            precision=projection_precision, smag=smag,
-            temperature=temp, compute_dtype=setup.dtype, **kw,
-        )
-        res = list(res)
-        k = res.pop(0) if emit_k else None
-        ut, divhat = res.pop(0), res.pop(0)
-        usnew = res.pop(0) if usnew_coeff is not None else None
-        out = (k, ut, proj["passB"](divhat), usnew)
-        if temp is not None:
-            tnext = res.pop(0)
-            tnew = res.pop(0) if usnew_coeff is not None else None
-            out = out + (tnext, tnew)
-        return out
-
-    def merged_stage_hat(ut, qhat, streams, coeffs, *, force,
-                         emit_k=False, usnew_coeff=None, usnew_base=None,
-                         smag=None, emit_u=False, temp=None):
-        """`fused_stage_hat` with the PREVIOUS stage's pressure
-        correction merged in: u = ut - grad(q) is reconstructed in VMEM
-        (ring-carried) and never round-trips HBM between interior
-        stages (`pcmsd_hat_3d`); the Smagorinsky force can ride the
-        reconstruction window.  ``streams[0] is RECON`` uses the
-        reconstruction itself as the tableau base (step-boundary
-        merge); ``emit_u`` appends the reconstructed u to the return;
-        ``temp`` (a `temp_arg` tuple) rides the Boussinesq temperature
-        on the same pass (its RHS consumes the reconstructed u),
-        appending (temp_next, tempnew|None) like `fused_stage_hat`."""
-        res = pcmsd_hat_3d(
-            ut, qhat, streams, coeffs, visc_static, dxs, proj,
-            emit_k=emit_k, usnew_coeff=usnew_coeff,
-            bodyforce=force, usnew_base=usnew_base,
-            precision=projection_precision, smag=smag, emit_u=emit_u,
-            temperature=temp, **kw,
-        )
-        res = list(res)
-        k = res.pop(0) if emit_k else None
-        ut2, divhat = res.pop(0), res.pop(0)
-        usnew = res.pop(0) if usnew_coeff is not None else None
-        out = (k, ut2, proj["passB"](divhat), usnew)
-        if emit_u:
-            out = out + (res.pop(0),)
-        if temp is not None:
-            tnext = res.pop(0)
-            tnew = res.pop(0) if usnew_coeff is not None else None
-            out = out + (tnext, tnew)
-        return out
-
-    def correct(ut, qhat, out_dtype=None):
-        return pressure_correct_qhat_3d(
-            ut, qhat, dxs, proj["V"], proj["VT"],
-            precision=projection_precision, out_dtype=out_dtype, **kw,
-        )
-
-    def fused_stage(u, streams, coeffs, *, force, emit_k=True,
-                    usnew_coeff=None, usnew_base=None, smag=None,
-                    temp=None):
-        """`fused_stage_hat` + the correction applied — returns
-        (k|None, u_next, usnew|None[, temp_next, tempnew|None])."""
-        res = fused_stage_hat(
-            u, streams, coeffs, force=force, emit_k=emit_k,
-            usnew_coeff=usnew_coeff, usnew_base=usnew_base, smag=smag,
-            temp=temp,
-        )
-        k, ut, qhat, usnew = res[:4]
-        out = (k, correct(ut, qhat, out_dtype=ut.dtype), usnew)
-        if temp is not None:
-            out = out + res[4:]
-        return out
 
     if isinstance(method, ExplicitRungeKuttaMethod):
         A, c, ns = method.A, method.c, method.nstage
 
-        # b-row accumulator: when every intermediate (shifted-tableau)
-        # row's only nonzero is its OWN stage's k — classic RK44 and
-        # friends — the final row ustart + dt*sum_j b_j k_j is built
-        # incrementally as a fused usnew kernel output, so NO stage k
-        # ever round-trips through HBM (emit_k is always False) and the
-        # final stage reads 2 streams instead of ns+1.
-        lowstorage_rows = _lowstorage_rows
-        # Merged chain: interior stages run `pcmsd_hat_3d` — the
-        # previous stage's pressure correction rides the next momentum
-        # kernel, so u materializes in HBM only once per STEP (at
-        # `correct`).  The Smagorinsky force rides the reconstruction
-        # window (widened ghosts), so LES merges too when the footprint
-        # allows.
-        use_merged = (
-            use_fused_stage and lowstorage_rows
-            and pcmsd_profitable(Np[0], 2 + (bodyforce_int is not None),
-                                 with_smag=_smag,
-                                 with_temp=tq is not None)
-        )
-
-        def step_merged(state, dt, theta):
-            u, temp, t, n = state
-            ustart = u
-            acc = ustart
-            tempstart = tacc = temp
-            ut = qhat = None
-            for i in range(ns):
-                last = i == ns - 1
-                bcoef = A[ns - 1][i]
-                unc = dt * bcoef if (bcoef != 0.0 and not last) else None
-                ub = None if (unc is None or acc is ustart) else acc
-                targ = None
-                if temp is not None:
-                    # temp mirrors the velocity's tableau streams:
-                    # base = tempstart (tacc at the final b-row stage),
-                    # elided at stage 0 where temp IS tempstart
-                    tb = (
-                        None if (unc is None or tacc is tempstart)
-                        else tacc
-                    )
-                    targ = temp_arg(
-                        temp,
-                        tstart=(
-                            None if i == 0
-                            else (tacc if last else tempstart)
-                        ),
-                        tacc=tb,
-                    )
-                if i == 0:
-                    res = fused_stage_hat(
-                        u, (ustart,), (dt * A[i][i],),
-                        force=bodyforce_int, emit_k=False,
-                        usnew_coeff=unc, smag=smag_arg(theta),
-                        temp=targ,
-                    )
-                else:
-                    res = merged_stage_hat(
-                        ut, qhat, ((acc,) if last else (ustart,)),
-                        (dt * A[i][i],),
-                        force=bodyforce_int, emit_k=False,
-                        usnew_coeff=unc, usnew_base=ub,
-                        smag=smag_arg(theta), temp=targ,
-                    )
-                _, ut, qhat, usnew = res[:4]
-                if temp is not None:
-                    temp, tnew = res[4:]
-                if unc is not None:
-                    acc = usnew
-                    if temp is not None:
-                        tacc = tnew
-            return StepperState(
-                u=correct(ut, qhat), temp=temp, t=t + dt, n=n + 1
-            )
-
-        def step_merged_hat(h, dt, theta):
-            """`step_merged` on a (ut, qhat) carry: stage 0 is the
-            step-boundary merge (base = in-kernel reconstruction of the
-            previous step's corrected u, which is also emitted for the
-            later stages' ustart reads) and the final correction is
-            deferred to the NEXT step — u never round-trips HBM
-            between scan steps."""
-            ut, qhat, temp, t, n = h
-            tempstart = tacc = temp
-            for i in range(ns):
-                last = i == ns - 1
-                bcoef = A[ns - 1][i]
-                unc = dt * bcoef if (bcoef != 0.0 and not last) else None
-                targ = None
-                if temp is not None:
-                    tb = (
-                        None if (unc is None or tacc is tempstart)
-                        else tacc
-                    )
-                    targ = temp_arg(
-                        temp,
-                        tstart=(
-                            None if i == 0
-                            else (tacc if last else tempstart)
-                        ),
-                        tacc=tb,
-                    )
-                if i == 0:
-                    # the emitted reconstruction is only read back as
-                    # ustart by stages i >= 1 — a 1-stage tableau skips
-                    # the (full-velocity) HBM write entirely
-                    res = merged_stage_hat(
-                        ut, qhat, (RECON,), (dt * A[i][i],),
-                        force=bodyforce_int, emit_k=False,
-                        usnew_coeff=unc, smag=smag_arg(theta),
-                        emit_u=ns > 1, temp=targ,
-                    )
-                    res = list(res)
-                    _, ut, qhat, usnew = res[:4]
-                    ustart = res[4] if ns > 1 else None
-                    acc = usnew if unc is not None else ustart
-                else:
-                    ub = None if (unc is None or acc is ustart) else acc
-                    res = merged_stage_hat(
-                        ut, qhat, ((acc,) if last else (ustart,)),
-                        (dt * A[i][i],),
-                        force=bodyforce_int, emit_k=False,
-                        usnew_coeff=unc, usnew_base=ub,
-                        smag=smag_arg(theta), temp=targ,
-                    )
-                    _, ut, qhat, usnew = res[:4]
-                if temp is not None:
-                    temp, tnew = res[-2:]
-                if unc is not None:
-                    acc = usnew
-                    if temp is not None:
-                        tacc = tnew
-            return HatState(ut=ut, qhat=qhat, temp=temp, t=t + dt, n=n + 1)
-
-        def step_unmerged(state, dt, theta):
+        def step(state, dt, theta):
             u, temp, t, n = state
             tstart = t
             ustart = u
             tempstart = temp
             ku, kt = [], []
-            acc = ustart
-            tacc = tempstart
             for i in range(ns):
-                if use_fused_stage and lowstorage_rows:
-                    t = tstart + c[i] * dt
-                    if i == ns - 1:
-                        targ = (
-                            temp_arg(temp, tstart=tacc)
-                            if temp is not None else None
-                        )
-                        res = fused_stage(
-                            u, (acc,), (dt * A[i][i],),
-                            force=bodyforce_int, smag=smag_arg(theta),
-                            emit_k=False, temp=targ,
-                        )
-                        u = res[1]
-                        if temp is not None:
-                            temp = res[3]
-                    else:
-                        bcoef = A[ns - 1][i]
-                        unc = dt * bcoef if bcoef != 0.0 else None
-                        targ = None
-                        if temp is not None:
-                            tb = (
-                                None
-                                if (unc is None or tacc is tempstart)
-                                else tacc
-                            )
-                            targ = temp_arg(
-                                temp,
-                                tstart=(None if i == 0 else tempstart),
-                                tacc=tb,
-                            )
-                        res = fused_stage(
-                            u, (ustart,), (dt * A[i][i],),
-                            force=bodyforce_int, smag=smag_arg(theta),
-                            emit_k=False,
-                            usnew_coeff=unc,
-                            usnew_base=(
-                                acc
-                                if unc is not None and acc is not ustart
-                                else None
-                            ),
-                            temp=targ,
-                        )
-                        _, u, usnew = res[:3]
-                        if temp is not None:
-                            temp, tnew = res[3:]
-                        if usnew is not None:
-                            acc = usnew
-                            if temp is not None:
-                                tacc = tnew
-                    continue
-                if use_fused_stage:
-                    t = tstart + c[i] * dt
-                    streams = [ustart]
-                    coeffs = []
-                    for j in range(i):
-                        if A[i][j] != 0.0:
-                            streams.append(ku[j])
-                            coeffs.append(dt * A[i][j])
-                    coeffs.append(dt * A[i][i])
-                    k, u, _ = fused_stage(
-                        u, streams, coeffs, force=bodyforce_int,
-                        smag=smag_arg(theta),
-                        emit_k=(i < ns - 1),
-                    )
-                    if k is not None:
-                        ku.append(k)
-                    continue
-                # base = ustart + dt * sum_{j<i} A[i][j] k_j (an axpy
-                # chain XLA fuses into one pass; empty for the classic
-                # RK44 rows), then the fused update-with-projection.
-                base = ustart
-                for j in range(i):
-                    if A[i][j] != 0.0:
-                        base = base + (dt * A[i][j]) * ku[j]
                 ku.append(momentum(u, temp, t, theta))
                 if temp is not None:
                     kt.append(temp_rhs(u, temp))
                 t = tstart + c[i] * dt
-                if A[i][i] != 0.0:
-                    u = stage_project(base, ku[i], dt * A[i][i])
-                else:  # degenerate diagonal entry: nothing new to add
-                    u = project(base)
+                # ustart + dt * sum_j A[i][j] k_j: an axpy chain XLA
+                # fuses into the divergence's loop kernel
+                u = ustart
+                for j in range(i + 1):
+                    if A[i][j] != 0.0:
+                        u = u + (dt * A[i][j]) * ku[j]
+                u = project(u)
                 if temp is not None:
                     temp = tempstart
                     for j in range(i + 1):
@@ -791,133 +262,20 @@ def make_fast_timestep(setup, method, *, projection_precision="manualhigh",
                             temp = temp + (dt * A[i][j]) * kt[j]
             return StepperState(u=u, temp=temp, t=t, n=n + 1)
 
-        step = step_merged if use_merged else step_unmerged
-
     else:  # LMWray3
         a_, b_, c_ = method.a, method.b, method.c
         ns = len(a_)
-        use_merged = (
-            use_fused_stage
-            and pcmsd_profitable(Np[0], 1 + (bodyforce_int is not None),
-                                 with_smag=_smag,
-                                 with_temp=tq is not None)
-        )
 
-        def step_merged(state, dt, theta):
-            u, temp, t, n = state
-            ustart = u
-            tempstart = temp
-            res = fused_stage_hat(
-                u, (ustart,), (dt * a_[0],), force=bodyforce_int,
-                emit_k=False,
-                usnew_coeff=(dt * b_[0] if ns > 1 else None),
-                smag=smag_arg(theta),
-                temp=temp_arg(temp) if temp is not None else None,
-            )
-            _, ut, qhat, usnew = res[:4]
-            if temp is not None:
-                temp, tnew = res[4:]
-            if ns > 1:
-                ustart = usnew
-                if temp is not None:
-                    tempstart = tnew
-            for i in range(1, ns):
-                unc = dt * b_[i] if i < ns - 1 else None
-                res = merged_stage_hat(
-                    ut, qhat, (ustart,), (dt * a_[i],),
-                    force=bodyforce_int, emit_k=False, usnew_coeff=unc,
-                    smag=smag_arg(theta),
-                    temp=(
-                        temp_arg(temp, tstart=tempstart)
-                        if temp is not None else None
-                    ),
-                )
-                _, ut, qhat, usnew = res[:4]
-                if temp is not None:
-                    temp, tnew = res[4:]
-                if unc is not None:
-                    ustart = usnew
-                    if temp is not None:
-                        tempstart = tnew
-            return StepperState(
-                u=correct(ut, qhat), temp=temp, t=t + dt, n=n + 1
-            )
-
-        def step_merged_hat(h, dt, theta):
-            """`step_merged` on a (ut, qhat) carry (see the ERK twin).
-            LMWray3's later stages only read the ACCUMULATOR (usnew),
-            never ustart itself, so stage 0 skips even the emit_u
-            write — the step-boundary merge saves a full u write+read
-            per step here."""
-            ut, qhat, temp, t, n = h
-            tempstart = temp
-            res = merged_stage_hat(
-                ut, qhat, (RECON,), (dt * a_[0],), force=bodyforce_int,
-                emit_k=False,
-                usnew_coeff=(dt * b_[0] if ns > 1 else None),
-                smag=smag_arg(theta),
-                temp=temp_arg(temp) if temp is not None else None,
-            )
-            _, ut, qhat, usnew = res[:4]
-            if temp is not None:
-                temp, tnew = res[4:]
-                if ns > 1:
-                    tempstart = tnew
-            ustart = usnew
-            for i in range(1, ns):
-                unc = dt * b_[i] if i < ns - 1 else None
-                res = merged_stage_hat(
-                    ut, qhat, (ustart,), (dt * a_[i],),
-                    force=bodyforce_int, emit_k=False, usnew_coeff=unc,
-                    smag=smag_arg(theta),
-                    temp=(
-                        temp_arg(temp, tstart=tempstart)
-                        if temp is not None else None
-                    ),
-                )
-                _, ut, qhat, usnew = res[:4]
-                if temp is not None:
-                    temp, tnew = res[4:]
-                if unc is not None:
-                    ustart = usnew
-                    if temp is not None:
-                        tempstart = tnew
-            return HatState(ut=ut, qhat=qhat, temp=temp, t=t + dt, n=n + 1)
-
-        def step_unmerged(state, dt, theta):
+        def step(state, dt, theta):
             u, temp, t, n = state
             tstart = t
             ustart = u
             tempstart = temp
             for i in range(ns):
                 ti = tstart + c_[i] * dt
-                if use_fused_stage:
-                    # du itself is never needed: the accumulator update
-                    # ustart += dt*b_i*du is a fused kernel output
-                    res = fused_stage(
-                        u, (ustart,), (dt * a_[i],),
-                        force=bodyforce_int, smag=smag_arg(theta),
-                        emit_k=False,
-                        usnew_coeff=(dt * b_[i] if i < ns - 1 else None),
-                        temp=(
-                            temp_arg(
-                                temp,
-                                tstart=(None if i == 0 else tempstart),
-                            )
-                            if temp is not None else None
-                        ),
-                    )
-                    _, u, usnew = res[:3]
-                    if temp is not None:
-                        temp, tnew = res[3:]
-                    if i < ns - 1:
-                        ustart = usnew
-                        if temp is not None:
-                            tempstart = tnew
-                    continue
                 du = momentum(u, temp, ti, theta)
                 dtemp = temp_rhs(u, temp) if temp is not None else None
-                u = stage_project(ustart, du, dt * a_[i])
+                u = project(ustart + dt * a_[i] * du)
                 if temp is not None:
                     temp = tempstart + dt * a_[i] * dtemp
                 if i < ns - 1:
@@ -926,48 +284,4 @@ def make_fast_timestep(setup, method, *, projection_precision="manualhigh",
                         tempstart = tempstart + dt * b_[i] * dtemp
             return StepperState(u=u, temp=temp, t=tstart + dt, n=n + 1)
 
-        step = step_merged if use_merged else step_unmerged
-
-    if _hat:
-        if not use_merged:
-            # bf16 stream storage WITHOUT the merged chain (512^3, where
-            # pcmsd is VMEM-gated off): carry a bf16-u StepperState over
-            # the unmerged fused chain — the stage kernels upcast windows
-            # to f32 (compute_dtype) and the per-stage correction emits
-            # the storage dtype.  Velocity traffic halves; qhat/divhat
-            # and all accumulations stay f32.
-            if (
-                _stream_dtype is not None
-                and use_fused_stage
-                and tq is None
-                and not _smag
-            ):
-                def to_sd(state):
-                    return state._replace(
-                        u=state.u.astype(_stream_dtype)
-                    )
-
-                def from_sd(state):
-                    return state._replace(u=state.u.astype(setup.dtype))
-
-                return to_sd, step_unmerged, from_sd
-            return None
-        Np_t = tuple(int(v) for v in Np)
-
-        def to_hat(state):
-            # qhat = 0 is an exact identity: u - grad(invtransform(0)) = u
-            ut0 = state.u
-            if _stream_dtype is not None:
-                ut0 = ut0.astype(_stream_dtype)
-            return HatState(
-                ut=ut0, qhat=jnp.zeros(Np_t, state.u.dtype),
-                temp=state.temp, t=state.t, n=state.n,
-            )
-
-        def from_hat(h):
-            return StepperState(
-                u=correct(h.ut, h.qhat), temp=h.temp, t=h.t, n=h.n
-            )
-
-        return to_hat, step_merged_hat, from_hat
     return step

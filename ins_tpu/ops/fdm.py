@@ -8,12 +8,11 @@ the symmetric volume-scaled 1-D Laplacian), so
 
     p = (x V_d) [ (x V_d^-1) (f / Omega) / (sum_d lambda_d) ]
 
-— D tensor contractions in, a diagonal solve, D contractions out. On TPU
-every contraction is an MXU matmul: an *exact* direct solve in
-O(N^(D+1)) flops, fully jittable and differentiable, replacing hundreds
-of CG iterations on stretched/Dirichlet grids and the host-side sparse
-factorization (reference psolver_direct, src/pressure.jl:117-154, which
-does not map to TPU).
+— D tensor contractions in, a diagonal solve, D contractions out: an
+*exact* direct solve in O(N^(D+1)) flops as dense on-device matmuls,
+fully jittable and differentiable, replacing hundreds of CG iterations
+on stretched/Dirichlet grids and the host-side sparse factorization
+(reference psolver_direct, src/pressure.jl:117-154).
 
 Eigendecompositions are precomputed once per setup in float64.
 """
@@ -88,7 +87,7 @@ def _one_dim_operator(setup, d):
     return M
 
 
-def fdm_solve_box(setup, *, precision="highest"):
+def fdm_solve_box(setup):
     """The core fast-diagonalization solve map on the interior DOF box:
     ``fbox -> pbox`` with ``L p = f`` solved exactly (up to working
     precision) by per-axis eigen contractions.
@@ -99,12 +98,10 @@ def fdm_solve_box(setup, *, precision="highest"):
     product, which makes it a valid (near-exact) CG preconditioner
     (`psolver_cg(precond="fdm")`).
 
-    ``precision``: "highest" (f32-exact contractions, the default for
-    the standalone direct solver) or "high" (3-pass bf16, ~5e-5
-    relative — within the reference CG solver's default reltol=1e-4,
-    src/pressure.jl:209-215; measured on the 256x128x128 channel the
-    post-projection divergence residual is IDENTICAL because the
-    stencil eval roundoff dominates, and the solve is ~15% faster).
+    The contractions run at `Precision.HIGHEST`: a reduced-precision
+    product (TF32 on the GPU) leaves ~1e-3 of the divergence on the
+    256x128x128 channel, which misses the reference CG solver's
+    reltol=1e-4 (src/pressure.jl:209-215).
     """
     g = setup.grid
     D = g.dim
@@ -143,18 +140,10 @@ def fdm_solve_box(setup, *, precision="highest"):
         om = om * delta.reshape([-1 if i == d else 1 for i in range(D)])
     inv_om = jnp.asarray(1.0 / om, dtype)
 
-    prec = (
-        jax.lax.Precision.HIGH
-        if precision == "high"
-        else jax.lax.Precision.HIGHEST
-    )
+    prec = jax.lax.Precision.HIGHEST
 
     def _contract(x, mats):
         # Apply mats[d] along dimension d: x <- mats[d] @_d x.
-        # TPU default (1-pass bf16) loses ~3 digits on these
-        # ill-conditioned transforms; HIGHEST restores f32 accuracy at
-        # negligible cost when memory-bound (HIGH when the caller opts
-        # into CG-tolerance accuracy, see docstring).
         for d in range(D):
             x = jnp.tensordot(mats[d], x, axes=([1], [d]), precision=prec)
             x = jnp.moveaxis(x, 0, d)

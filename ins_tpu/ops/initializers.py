@@ -160,9 +160,7 @@ def random_field(setup, t=0.0, *, A=1.0, kp=10, psolver=None, rng=None):
     t = jnp.asarray(t, setup.dtype)
 
     uhat = create_spectrum(setup, kp=kp, rng=rng)
-    from .dft import ifftn  # per-axis on TPU (fused 3D FFT inaccurate there)
-
-    u = ifftn(uhat, axes=tuple(range(1, D + 1)))
+    u = jnp.fft.ifftn(uhat, axes=tuple(range(1, D + 1)))
     u = A * jnp.real(u).astype(setup.dtype)
 
     # Add ghost volumes (periodic wrap)

@@ -3,7 +3,7 @@
 Re-design of IncompressibleNavierStokes.jl `src/matrices.jl` on
 scipy.sparse (host-side; used for setup-time factorizations in
 `psolver_direct` and for implicit-diffusion solves — these never run in the
-TPU hot loop). Flattening convention: scalar fields ravel row-major over
+device hot loop). Flattening convention: scalar fields ravel row-major over
 `N`; vector fields ravel row-major over `(D, *N)` (component-major), i.e.
 `u.ravel()` of this framework's component-first layout.
 

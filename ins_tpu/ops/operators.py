@@ -1,13 +1,13 @@
 """Differential operators on the staggered grid.
 
-TPU-native re-design of IncompressibleNavierStokes.jl `src/operators.jl`
+Re-design of IncompressibleNavierStokes.jl `src/operators.jl`
 (1910 LoC of KernelAbstractions kernels + hand-written adjoint kernels).
 Here every operator is a pure function built from static-slice stencil
 arithmetic which XLA fuses; adjoints come for free from JAX autodiff (the
 reference's hand-written adjoint kernels serve as gradient ground truth in
 `tests/test_chainrules.py`).
 
-Fields: velocity `u: (D, *N)` (component-first for TPU tiling), scalars
+Fields: velocity `u: (D, *N)` (component-first), scalars
 `(N...)`. All shapes include ghost volumes; operators write only the DOF
 boxes `Iu[alpha]` / `Ip` of their output, boundary values are filled
 separately by `apply_bc_*` (same contract as reference src/operators.jl:29-33).
@@ -514,7 +514,7 @@ def Qfield(u, setup):
 
 def _eigvals2_sym3(M):
     """Middle eigenvalue of a batched symmetric 3x3 matrix via the
-    closed-form trigonometric formula — runs natively on TPU (no LAPACK)
+    closed-form trigonometric formula — elementwise on device (no LAPACK)
     and is robust for degenerate spectra."""
     a00, a01, a02 = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
     a11, a12, a22 = M[..., 1, 1], M[..., 1, 2], M[..., 2, 2]
@@ -589,9 +589,7 @@ def get_scale_numbers(u, setup):
     # Integral length scale via spectrum (uniform periodic only)
     K = tuple(n // 2 for n in g.Np)
     up = jnp.stack([u[a][ipslc] for a in range(D)])
-    from .dft import fftn  # per-axis on TPU (fused 3D FFT inaccurate there)
-
-    uhat = fftn(up, axes=tuple(range(1, D + 1)))
+    uhat = jnp.fft.fftn(up, axes=tuple(range(1, D + 1)))
     uhat = uhat[(slice(None),) + tuple(slice(0, k) for k in K)]
     e = jnp.abs(uhat) ** 2 / (2 * float(np.prod(g.Np)) ** 2)
     kk = sum(

@@ -1,10 +1,11 @@
 """Pressure-Poisson solvers and projection.
 
-TPU-native re-design of IncompressibleNavierStokes.jl `src/pressure.jl`:
+Re-design of IncompressibleNavierStokes.jl `src/pressure.jl`:
 
 - `psolver_spectral`: batched XLA real-FFT solve on uniform periodic grids
-  (eigenvalue formula of src/pressure.jl:303-311). The FFT runs on-device;
-  under a sharded mesh XLA decomposes it with all-to-all transposes.
+  (eigenvalue formula of src/pressure.jl:303-311). The FFT runs on-device
+  (cuFFT on the GPU); under a sharded mesh XLA decomposes it with
+  all-to-all transposes.
 - `psolver_cg`: matrix-free preconditioned conjugate gradients as a
   `lax.while_loop` (port of the iteration of src/pressure.jl:209-286 with
   the diagonal-Laplace preconditioner of :188-206). Fully jittable and
@@ -41,6 +42,7 @@ from .operators import (
 __all__ = [
     "default_psolver",
     "psolver_spectral",
+    "spectral_inverse_laplacian",
     "psolver_cg",
     "psolver_cg_matrix",
     "psolver_direct",
@@ -54,9 +56,9 @@ def default_psolver(setup):
     """Spectral on uniform periodic grids, fast-diagonalization direct
     solve otherwise (selection logic mirrors src/pressure.jl:85-98:
     spectral iff uniform periodic, else a direct solver — here the
-    MXU-based tensor-product diagonalization of ops/fdm.py instead of a
-    sparse factorization, which does not map to TPU). `psolver_cg` and
-    `psolver_direct` remain available."""
+    on-device tensor-product diagonalization of ops/fdm.py instead of a
+    host-side sparse factorization). `psolver_cg` and `psolver_direct`
+    remain available."""
     g = setup.grid
     if all(g.periodic) and all(g.uniform):
         return psolver_spectral(setup)
@@ -70,59 +72,46 @@ def default_psolver(setup):
 # --------------------------------------------------------------------------
 
 
-def psolver_spectral(setup):
-    """FFT Poisson solver on a uniform periodic grid.
+def spectral_inverse_laplacian(Np, dxs, dtype=jnp.float64):
+    """Real-FFT multiplier of the inverse volume-scaled periodic Laplacian
+    (rfft over the last axis):
+    ``-1 / sum_d 4 vol sin^2(pi k_d / n_d) / dx_d^2``
+    (src/pressure.jl:303-311) with the k=0 (zero-mean) mode pinned to 0.
+    Built by broadcasting per-axis 1-D eigenvalue vectors, so inside a
+    jitted function the N-D multiplier is computed in-graph (and fused
+    into the multiply) rather than embedded as an n^D constant."""
+    D = len(Np)
+    vol = float(np.prod(dxs))
+    den = 0.0
+    for d in range(D):
+        k = np.arange(Np[d] // 2 + 1 if d == D - 1 else Np[d])
+        lam = 4 * vol * np.sin(np.pi * k / Np[d]) ** 2 / dxs[d] ** 2
+        den = den + jnp.asarray(
+            lam.reshape([-1 if i == d else 1 for i in range(D)]), dtype
+        )
+    # every per-axis eigenvalue is >= 0 and vanishes only at k_d = 0, so
+    # den == 0 exactly at the zero-mean mode
+    return jnp.where(den == 0, 0.0, -1.0 / jnp.where(den == 0, 1.0, den))
 
-    Eigenvalues of the discrete Laplacian: `4 Ω sin²(π k / N) / Δx²`
-    (src/pressure.jl:303-311). We run the real FFT over the *last* axis
-    (TPU/XLA convention) rather than the reference's first.
+
+def psolver_spectral(setup):
+    """FFT Poisson solver on a uniform periodic grid: one real-FFT pair
+    (cuFFT on the GPU) and the eigenvalue multiplier of
+    `spectral_inverse_laplacian`.  The real transform runs over the
+    *last* axis rather than the reference's first.
     """
     g = setup.grid
     D = g.dim
-    dtype = setup.dtype
     if not (all(g.periodic) and all(g.uniform)):
         raise ValueError("Spectral psolver requires a uniform periodic grid")
-    Np = g.Np
     dx = [float(np.asarray(g.delta[d])[0]) for d in range(D)]
-    vol = float(np.prod(dx))
-
-    from .dft import backend_is_cpu, make_poisson_mm
-
-    if not backend_is_cpu():
-        # On accelerators the same diagonalization runs as MXU matmuls:
-        # ~2x faster than XLA's fused TPU FFT at 256^3 and exact to f32
-        # (the fused 3D FFT there has 0.33 rel error — see ops/dft.py).
-        solve_mm = make_poisson_mm(Np, dx, dtype)
-        ip_mm = slc(setup.grid.Ip)
-
-        def psolve_mm(p):
-            sol = solve_mm(p[ip_mm]).astype(p.dtype)
-            return p.at[ip_mm].set(sol)
-
-        psolve_mm.is_spectral = True
-        return psolve_mm
-    kmax = tuple(Np[d] // 2 + 1 if d == D - 1 else Np[d] for d in range(D))
-    # Denominator sum_d 4 Ω sin²(π k_d / N_d) / Δx_d²
-    denom = np.zeros(kmax, dtype=np.float64)
-    for d in range(D):
-        k = np.arange(kmax[d])
-        a = 4.0 * vol * np.sin(np.pi * k / Np[d]) ** 2 / dx[d] ** 2
-        denom = denom + a.reshape(tuple(-1 if i == d else 1 for i in range(D)))
-    denom_flat = denom.copy()
-    denom_flat[(0,) * D] = 1.0  # avoid 0/0
-    inv = -1.0 / denom_flat
-    # Zero-mean pressure: fold the k=0 pin into the multiplier. A runtime
-    # `.at[(0,)*D].set(0)` scatter on the complex spectrum defeats XLA's
-    # FFT fusion on TPU (measured 7x slower projection at 256^3).
-    inv[(0,) * D] = 0.0
-    inv_denom = jnp.asarray(inv, dtype)
-
+    Np = tuple(g.Np)
     ip = slc(setup.grid.Ip)
 
     def psolve(p):
         f = p[ip]
-        fhat = jnp.fft.rfftn(f)
-        phat = fhat * inv_denom
+        inv_denom = spectral_inverse_laplacian(Np, dx, setup.dtype)
+        phat = jnp.fft.rfftn(f) * inv_denom
         sol = jnp.fft.irfftn(phat, f.shape).astype(p.dtype)
         return p.at[ip].set(sol)
 
@@ -146,7 +135,7 @@ def psolver_cg(setup, *, abstol=0.0, reltol=None, maxiter=None,
     any separable grid (it is symmetric in the plain dot product, see
     `fdm_solve_box`), so FDM-CG converges in O(1) iterations there and
     stays a cheap near-exact preconditioner otherwise; each application
-    is D MXU tensor contractions instead of hundreds of stencil sweeps.
+    is D dense tensor contractions instead of hundreds of stencil sweeps.
     """
     g = setup.grid
     dtype = setup.dtype
@@ -258,7 +247,7 @@ def psolver_cg_matrix(setup, *, abstol=0.0, reltol=None, maxiter=None):
     The matrix lives on device as a BCOO and the matvec runs inside the
     jitted `lax.while_loop` — useful when the operator has been
     inspected/modified as an explicit matrix. For production use prefer
-    `psolver_cg` (matrix-free stencil, faster on TPU) or `psolver_fdm`
+    `psolver_cg` (matrix-free stencil) or `psolver_fdm`
     (direct). The singular (no PressureBC) case is handled by zero-mean
     projection — the CG-space analogue of the reference's bordered
     system [L e; e' 0]."""
@@ -340,8 +329,9 @@ def psolver_direct(setup):
     """Direct Poisson solver via host-side sparse LU (scipy), with rank-1
     nullspace augmentation `[L e; e' 0]` when the operator is singular
     (no PressureBC anywhere), cf. src/pressure.jl:117-154. Wrapped in
-    `jax.pure_callback` so it composes with jit (not recommended for hot
-    TPU loops; use CG or spectral there)."""
+    `jax.pure_callback` so it composes with jit; every solve round-trips
+    the RHS through the host, so hot loops are faster on CG, FDM or
+    spectral solves."""
     import scipy.sparse as sp
     import scipy.sparse.linalg as spla
 
@@ -378,8 +368,7 @@ def psolver_direct(setup):
     def psolve(p):
         f = p[ip].reshape(-1)
         if isinstance(f, jax.core.Tracer):
-            # Under jit: host callback (supported on CPU backend; TPU hot
-            # loops should use psolver_cg / psolver_spectral instead)
+            # Under jit: host callback
             sol = jax.pure_callback(
                 host_solve, jax.ShapeDtypeStruct(f.shape, f.dtype), f,
                 vmap_method="sequential",
@@ -388,11 +377,6 @@ def psolver_direct(setup):
             sol = jnp.asarray(host_solve(np.asarray(f)))
         return p.at[ip].set(sol.reshape(g.Np))
 
-    # Tag for solve_unsteady's TPU guard: pure_callback round-trips the
-    # RHS to the host every solve, which is unsupported-slow inside TPU
-    # scan loops — the driver falls back to psolver_fdm there.
-    psolve.uses_host_callback = True
-    psolve._setup = setup
     return psolve
 
 

@@ -3,7 +3,7 @@
 Re-design of IncompressibleNavierStokes.jl `src/tensorbasis.jl`:
 B[0..2] + 2 invariants in 2D, B[0..10] + 5 invariants in 3D (Silvis2017
 eqs. (9), (11)). Tensors are stacked arrays `(nb, *N, D, D)` (channel
-first for TPU tiling); the contraction `lastdimcontract` is one einsum.
+first); the contraction `lastdimcontract` is one einsum.
 Adjoints are free via JAX autodiff (the reference hand-writes the 2D
 adjoint and leaves the 3D one TODO at src/tensorbasis.jl:93-95 — here both
 come from the same autodiff path).

@@ -1,8 +1,8 @@
-"""Distributed execution over TPU meshes (domain decomposition, collectives).
+"""Distributed execution over device meshes (domain decomposition, collectives).
 
 The reference is single-device (SURVEY.md §2.5); this subpackage is designed
-fresh for TPU: spatial sharding of `(D, *N)` fields over a
-`jax.sharding.Mesh`, halo exchange over ICI, pencil FFTs, and data-parallel
+fresh: spatial sharding of `(D, *N)` fields over a `jax.sharding.Mesh`,
+halo exchange by collective permutes, pencil FFTs, and data-parallel
 closure training.
 """
 

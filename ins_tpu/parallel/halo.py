@@ -1,35 +1,27 @@
-"""Hand-rolled multichip stepping: shard_map + explicit ICI collectives.
+"""Hand-rolled multi-device stepping: shard_map + explicit collectives.
 
 The GSPMD path (`solve_unsteady(mesh=...)`) lets XLA insert collectives.
 This module is the explicitly-scheduled alternative for the periodic
-uniform fast path, built the way a pod-scale run wants it
-(SURVEY.md §2.5 "TPU-native mapping", items a-c):
+uniform fast path (SURVEY.md §2.5, items a-c):
 
 - **x-slab (1-D mesh) or x/y-pencil (2-D mesh) domain decomposition** of
   the ghost-free interior fields;
 - **halo exchange** of boundary planes with `lax.ppermute` ring shifts
   along every sharded axis (x first, then y, so corner halos ride along
   correctly), replacing the reference's ghost reads at shard edges;
-- **pressure solve** either by the **fused Pallas eigen chain** (x-slab
-  cube: the stage kernel emits z/y-transformed divergence, an
-  `all_to_all` x<->y transpose localizes x for the eigen-scale pass B,
-  and the correction kernel consumes the transposed-back qhat — the
-  multichip twin of the single-chip fused projection), by a
-  **pencil-decomposed FFT** (local FFTs over unsharded axes,
-  `lax.all_to_all` transposes to localize each sharded axis in turn —
-  the Ulysses-style axis swap), or by **matrix-free CG whose reductions
-  are `lax.psum` over the mesh**;
+- **pressure solve** either by a **pencil-decomposed FFT** (local FFTs
+  over unsharded axes, `lax.all_to_all` transposes to localize each
+  sharded axis in turn) or by **matrix-free CG whose reductions are
+  `lax.psum` over the mesh**;
 - optional **Boussinesq temperature** coupling (periodic BCs), a steady
-  **body force**, and the natural-form **Smagorinsky closure** (fused
-  per-shard force kernel), advanced with the same tableau as the
-  single-chip fast path.
+  **body force**, and the natural-form **Smagorinsky closure**, advanced
+  with the same tableau as the single-device fast path.
 
 Everything runs inside one `shard_map`, so the collective schedule is
-explicit and rides ICI.  Per-shard hot loops run the same fused Pallas
-kernels as the single-chip fast path (halo-padded local blocks; see
-`ops/pallas_kernels.py` `*_halo_3d`).  Reference counterpart: none
-(single-device); capability target per BASELINE.json "weak-scaling
-linearly to a pod slice".
+explicit (NCCL carries the ppermutes and all_to_alls on GPUs).  Per-shard
+stencils are the fast path's shift graph on halo-padded local blocks.
+Reference counterpart: none (single-device); capability target per
+BASELINE.json "weak-scaling linearly".
 """
 
 from __future__ import annotations
@@ -93,29 +85,21 @@ def _halo_pad(v, dim, axis_name, nshards, lo=1, hi=1):
 
 
 def make_halo_fast_step(setup, method, mesh, *, psolver="pencil",
-                        donate=False, cg_maxiter=None, cg_reltol=None,
-                        projection_precision="manualhigh",
-                        pallas_interpret=False, merge="auto",
-                        fused=True):
+                        donate=False, cg_maxiter=None, cg_reltol=None):
     """Build `step(state, dt, theta=None) -> state` for a 3D uniform
     periodic setup on x-slab (1-D mesh `("x",)`) or x/y-pencil (2-D mesh
     `("x", "y")`) sharded interior fields.
 
-    `psolver`: "pencil" (all_to_all transposed FFT Poisson solve — on
-    x-slab cube grids with Pallas support this upgrades to the fused
-    eigen chain) or "cg" (matrix-free CG with psum-reduced inner
-    products).
+    `psolver`: "pencil" (all_to_all transposed FFT Poisson solve) or
+    "cg" (matrix-free CG with psum-reduced inner products).
     `donate=False` (default) keeps the input state alive;
     `donate=True` donates `state.u`/`state.temp` for in-place stepping
     (do not reuse a state you stepped from).
-    `pallas_interpret=True` forces the per-shard Pallas kernels in
-    interpreter mode (virtual-mesh CPU testing of the production path).
 
-    The returned `step` also carries `step.raw(u[, temp][, bf], dt,
-    theta)` — the un-jitted shard_map'd local step and its specs
-    (`step.in_specs` / `step.out_specs` / `step.fixed_args`) so a
-    driver can trace it inside its own jit/scan without nested-donation
-    loss (`solver.solve_unsteady(halo=True)`)."""
+    The returned `step` also carries `step.raw(state, dt, theta)` — the
+    un-jitted shard_map'd step — so a driver can trace it inside its own
+    jit/scan without nested-donation loss
+    (`solver.solve_unsteady(halo=True)`)."""
     g = setup.grid
     D = g.dim
     assert D == 3, "halo fast path: 3D"
@@ -164,7 +148,7 @@ def make_halo_fast_step(setup, method, mesh, *, psolver="pencil",
         bf_int = shard_interior(mesh, bf_int)
 
     # Closure: only the natural-form Smagorinsky (tagged) runs here, as
-    # the fused per-shard Pallas force kernel.
+    # its roll twin on a 3-plane halo-padded block.
     _smag = (
         getattr(setup.closure_model, "kind", None) == "smagorinsky_natural"
     )
@@ -173,14 +157,19 @@ def make_halo_fast_step(setup, method, mesh, *, psolver="pencil",
             "halo fast path: only the tagged natural-form Smagorinsky "
             "closure is supported (smagorinsky_closure_natural)"
         )
+    if _smag and (lx < 3 or (has_y and ly < 3)):
+        raise ValueError(
+            "halo fast path: the Smagorinsky closure needs at least 3 "
+            "planes per shard along each sharded axis"
+        )
 
-    def pad_all(v, dims, ylo=1, yhi=1):
+    def pad_all(v, dims, lo=1, hi=1):
         """Halo-pad spatial dims of a local block; x before y so the
         y-exchange carries the x-halo columns (correct corners)."""
         if 0 in dims:
-            v = _halo_pad(v, v.ndim - 3, AXIS, mx)
+            v = _halo_pad(v, v.ndim - 3, AXIS, mx, lo, hi)
         if 1 in dims and has_y:
-            v = _halo_pad(v, v.ndim - 2, AXIS_Y, my, ylo, yhi)
+            v = _halo_pad(v, v.ndim - 2, AXIS_Y, my, lo, hi)
         return v
 
     def shift(v, sx, sy, sz):
@@ -196,134 +185,18 @@ def make_halo_fast_step(setup, method, mesh, *, psolver="pencil",
 
     e = [(1, 0, 0), (0, 1, 0), (0, 0, 1)]
 
-    # ---------------- per-shard Pallas kernel dispatch ----------------
-    # 1-D x-slab meshes: dedicated halo kernels (contiguous non-wrapping
-    # DMAs on ppermute-padded blocks) — incl. the fully-fused stage chain
-    # with in-kernel tableau accumulation and z/y eigen transforms when
-    # the grid is a lane-aligned cube and the solve is eigen-compatible.
-    # 2-D pencil meshes: the single-chip modular kernels run on blocks
-    # padded by 1 in x and 4 in y (4 keeps the sublane extent ly+8
-    # aligned); their periodic wrap is only wrong on the discarded edge
-    # planes/rows.
-    from ..ops.pallas_kernels import (
-        RECON,
-        convdiff_interior_3d,
-        momentum_stage_divhat_halo_3d,
-        pcmsd_halo_profitable,
-        pcmsd_hat_halo_3d,
-        pressure_correct_3d,
-        pressure_correct_qhat_halo_3d,
-        smagorinsky_force_3d,
-        smagorinsky_force_halo_3d,
-        stage_div_3d,
-    )
+    def smag_force_local(u, theta):
+        """Per-shard natural Smagorinsky force: the roll twin
+        `smagorinsky_natural_interior` on a block padded by its stencil
+        reach (3 planes) along each sharded axis; the wrapped edge planes
+        are discarded."""
+        from ..ops.eddyviscosity import smagorinsky_natural_interior
 
-    try:
-        on_tpu = jax.default_backend() == "tpu"
-    except Exception:  # pragma: no cover
-        on_tpu = False
-    interp = bool(pallas_interpret)
-    if interp:
-        # interpreter mode (virtual-mesh CPU testing of the production
-        # path): no lane/sublane alignment requirements
-        pallas_ok, align_1d, align_2d, big_1d = True, True, ly >= 4, True
-    else:
-        pallas_ok = on_tpu and nz % 128 == 0
-        align_1d = ny % 8 == 0
-        align_2d = ly % 8 == 0 and ly >= 8
-        big_1d = lx >= 8
-    # the segmented-DMA halo kernels need an even local extent (bx >= 2)
-    align_1d = align_1d and lx % 2 == 0 and lx >= 2
-    use_pallas_local = pallas_ok and not has_y and align_1d
-    use_pallas_2d = pallas_ok and has_y and align_2d
-    use_fused_local = (
-        fused
-        and use_pallas_local
-        and psolver == "pencil"
-        and nx == ny == nz
-        and ny % mx == 0
-        and big_1d
-    )
-    # 2-D pencil meshes: the fused stage kernel runs on y-halo'd blocks
-    # with a RECTANGULAR zero-padded y-basis slice (partial y transform
-    # completed by a psum_scatter over 'y'; see fused_stage_2d below).
-    # The Smagorinsky closure and the merged chain stay 1-D-only.
-    use_fused_2d = (
-        fused
-        and use_pallas_2d
-        and psolver == "pencil"
-        and nx == ny == nz
-        and ny % (mx * my) == 0
-        and lx >= 2
-        and lx % 2 == 0
-        and setup.closure_model is None
-    )
-    if (visc_needed := use_pallas_local or use_pallas_2d):
-        visc_static = float(1.0 / np.asarray(setup.Re))
-    del visc_needed
-    if setup.closure_model is not None and not (
-        use_pallas_local or use_pallas_2d
-    ):
-        raise ValueError(
-            "halo fast path: the Smagorinsky closure needs the per-shard "
-            "Pallas path (TPU backend, lane-aligned extents)"
-        )
-
-    kw = dict(interpret=interp) if interp else {}
-
-    def _pad_x(v, lo=1, hi=1):
-        return _halo_pad(v, v.ndim - 3, AXIS, mx, lo, hi)
-
-    _right_perm = [(i, (i + 1) % mx) for i in range(mx)]
-    _left_perm = [(i, (i - 1) % mx) for i in range(mx)]
-
-    def _x_lo(v, k):
-        """The left ring neighbour's last k x-planes (lower ghosts)."""
-        dim = v.ndim - 3
-        sl = jax.lax.slice_in_dim(v, v.shape[dim] - k, v.shape[dim], axis=dim)
-        return jax.lax.ppermute(sl, AXIS, _right_perm)
-
-    def _x_hi(v, k):
-        """The right ring neighbour's first k x-planes (upper ghosts)."""
-        dim = v.ndim - 3
-        sl = jax.lax.slice_in_dim(v, 0, k, axis=dim)
-        return jax.lax.ppermute(sl, AXIS, _left_perm)
-
-    def _pad_blk2d(v):
-        """x(1,1) + y(4,4) halo pad for the modular kernels on 2-D
-        meshes (x first so corners ride the y exchange)."""
-        v = _halo_pad(v, v.ndim - 3, AXIS, mx, 1, 1)
-        return _halo_pad(v, v.ndim - 2, AXIS_Y, my, 4, 4)
-
-    def _pad_blk2d_w(v, xlo, xhi):
-        v = _halo_pad(v, v.ndim - 3, AXIS, mx, xlo, xhi)
-        return _halo_pad(v, v.ndim - 2, AXIS_Y, my, 4, 4)
-
-    def smag_force_local(u, theta, bf):
-        """Per-shard natural Smagorinsky force (+ steady body force
-        folded in), matching `ops.pallas_kernels.smagorinsky_force_3d`."""
-        th = jnp.asarray(
-            0.17 if theta is None else theta, dtype
-        )
-        if use_pallas_local:
-            return smagorinsky_force_halo_3d(
-                u, _x_lo(u, 2), _x_hi(u, 2), th, dxs, bodyforce=bf, **kw
-            )
-        # 2-D mesh: modular kernel on an x(2,2)/y(4,4)-padded block,
-        # discarding the wrapped edge planes/rows.
-        f = smagorinsky_force_3d(_pad_blk2d_w(u, 2, 2), th, dxs, **kw)
-        f = f[:, 2:-2, 4:-4]
-        return f if bf is None else f + bf
+        f = smagorinsky_natural_interior(pad_all(u, (0, 1), 3, 3), theta, dxs)
+        f = f[:, 3:-3]
+        return f[:, :, 3:-3] if has_y else f
 
     def convdiff_local(u):
-        if use_pallas_local:
-            return convdiff_interior_3d(_pad_x(u), visc_static, dxs, **kw)[
-                :, 1:-1
-            ]
-        if use_pallas_2d:
-            return convdiff_interior_3d(
-                _pad_blk2d(u), visc_static, dxs, **kw
-            )[:, 1:-1, 4:-4]
         visc = 1 / setup.Re
         up = [pad_all(u[a], (0, 1)) for a in range(3)]
         F = []
@@ -371,7 +244,9 @@ def make_halo_fast_step(setup, method, mesh, *, psolver="pencil",
         Part of the momentum RHS k."""
         out = None
         if _smag:
-            out = smag_force_local(u, theta, bf)  # bf folded in
+            out = smag_force_local(u, theta)
+            if bf is not None:
+                out = out + bf
         elif bf is not None:
             out = bf
         if temp is not None:
@@ -435,161 +310,41 @@ def make_halo_fast_step(setup, method, mesh, *, psolver="pencil",
     # ---------------- pressure solves ----------------
     nzh = nz // 2 + 1
 
-    def _denom(kmaxes):
-        den = np.zeros(kmaxes)
-        for d, kd in enumerate((nx, ny, nz)):
-            k = np.arange(kmaxes[d])
-            a = 4 * vol * np.sin(np.pi * k / kd) ** 2 / dxs[d] ** 2
-            den += a.reshape([-1 if i == d else 1 for i in range(3)])
-        den[0, 0, 0] = 1.0
-        inv = -1.0 / den
-        inv[0, 0, 0] = 0.0
-        return inv
-
-    if use_fused_local:
-        # Fused eigen projection: pass B (x-forward, eigen-scale,
-        # x-inverse) runs on all_to_all-transposed blocks with FULL x —
-        # the multichip twin of poisson_pallas.make_fused_projection.
-        from ..ops.poisson_pallas import make_passB_sharded
-
-        ly2 = ny // mx
-        projd = make_passB_sharded(
-            (nx, ny, nz), dxs, dtype, ly2,
-            precision=projection_precision, interpret=interp,
+    def _lam(d, size):
+        """Per-axis eigenvalues 4 vol sin^2(pi k / n_d) / dx_d^2 of the
+        volume-scaled Laplacian, k < size (1-D constant)."""
+        n = (nx, ny, nz)[d]
+        k = np.arange(size)
+        return jnp.asarray(
+            4 * vol * np.sin(np.pi * k / n) ** 2 / dxs[d] ** 2, dtype
         )
 
-        def passB_dist(divhat_local):
-            h = jax.lax.all_to_all(
-                divhat_local, AXIS, split_axis=1, concat_axis=0, tiled=True
-            )  # (nx, ly2, nz): full x, y-slice [ix*ly2, (ix+1)*ly2)
-            yoff = jax.lax.axis_index(AXIS) * ly2
-            qh = projd["passB"](h, yoff)
-            return jax.lax.all_to_all(
-                qh, AXIS, split_axis=0, concat_axis=1, tiled=True
-            )  # back to (lx, ny, nz)
-
-    if use_fused_2d:
-        # 2-D pencil twin of the fused eigen projection.  The stage
-        # kernel can only transform the UNSHARDED z axis exactly; for y
-        # it contracts against this shard's zero-padded column slice of
-        # Vinv_y, emitting a PARTIAL contribution to all ny y-modes.
-        # The schedule completes the transform with collectives:
-        #   psum_scatter('y')   sum partials, scatter y-modes  (lx,lym,nz)
-        #   all_to_all('x')     localize x                     (nx,ly2,nz)
-        #   passB (+ yoff)      x-forward, eigen-scale, x-inverse
-        #   all_to_all('x')     back                           (lx,lym,nz)
-        #   partial y-inverse + psum_scatter('y') over rows    (lx,ly,nz)
-        #   z-inverse (XLA matmul), modular pressure correction.
-        from ..ops.poisson_pallas import make_passB_sharded
-
-        ly2f = ny // (mx * my)
-        lym = ny // my
-        projd2 = make_passB_sharded(
-            (nx, ny, nz), dxs, dtype, ly2f,
-            precision=projection_precision, interpret=interp,
-        )
-        _P_HI = jax.lax.Precision.HIGHEST
-
-        def _pad_y4(v):
-            return _halo_pad(v, v.ndim - 2, AXIS_Y, my, 4, 4)
-
-        def _vinvy_shard_cols():
-            # (ny, ly + 8): this shard's y-rows as columns, zero at the
-            # 4 halo-pad rows each side (their periodic y-wrap inside
-            # the kernel block is wrong, so they must not contribute)
-            iy = jax.lax.axis_index(AXIS_Y)
-            cols = jax.lax.dynamic_slice_in_dim(
-                projd2["Vinv"], iy * ly, ly, 1
-            )
-            z4 = jnp.zeros((ny, 4), dtype)
-            return jnp.concatenate([z4, cols, z4], 1)
-
-        def projection_2d(divh_part):
-            """Distributed transform schedule from the kernel's partial
-            divhat (lx, ny, nz) to the real-space potential (lx, ly, nz)."""
-            dh = jax.lax.psum_scatter(
-                divh_part, AXIS_Y, scatter_dimension=1, tiled=True
-            )  # (lx, lym, nz): y-modes [iy*lym, (iy+1)*lym)
-            h = jax.lax.all_to_all(
-                dh, AXIS, split_axis=1, concat_axis=0, tiled=True
-            )  # (nx, ly2f, nz)
-            iy = jax.lax.axis_index(AXIS_Y)
-            ix = jax.lax.axis_index(AXIS)
-            qh = projd2["passB"](h, iy * lym + ix * ly2f)
-            qh = jax.lax.all_to_all(
-                qh, AXIS, split_axis=0, concat_axis=1, tiled=True
-            )  # (lx, lym, nz)
-            # y-inverse: partial over this shard's modes -> all ny rows,
-            # then scatter rows back over 'y'
-            rows = jax.lax.dynamic_slice_in_dim(
-                projd2["V"], iy * lym, lym, 1
-            )  # (ny, lym)
-            part = jnp.einsum(
-                "Yk,xkz->xYz", rows, qh, precision=_P_HI
-            )
-            qz = jax.lax.psum_scatter(
-                part, AXIS_Y, scatter_dimension=1, tiled=True
-            )  # (lx, ly, nz), still z-hat
-            # z-inverse: q[..., z] = sum_kz qz[..., kz] V[z, kz]
-            return jnp.matmul(qz, projd2["VT"], precision=_P_HI)
-
-        def fused_stage_2d(u, streams, coeffs, *, force, emit_k=True,
-                           usnew_coeff=None, usnew_base=None):
-            """Fused momentum + tableau + divergence + z-forward +
-            partial-y-forward in ONE kernel pass over the y-halo'd
-            block, then `projection_2d` and the modular correction.
-            Same contract as the 1-D `fused_stage` (minus smag)."""
-            up = _pad_y4(u)
-            st = tuple(up if s is u else _pad_y4(s) for s in streams)
-            st_lo = tuple(_x_lo(s, 1) for s in st)
-            bfp = _pad_y4(force) if force is not None else None
-            ubp = _pad_y4(usnew_base) if usnew_base is not None else None
-            res = momentum_stage_divhat_halo_3d(
-                up, _x_lo(up, 2), _x_hi(up, 1), st, st_lo, coeffs,
-                visc_static, dxs, _vinvy_shard_cols(), projd2["VinvT"],
-                emit_k=emit_k, usnew_coeff=usnew_coeff,
-                bodyforce=bfp,
-                bodyforce_lo=(
-                    _x_lo(bfp, 1) if bfp is not None else None
-                ),
-                usnew_base=ubp,
-                precision=projection_precision, **kw,
-            )
-            res = list(res)
-            k = res.pop(0)[:, :, 4:-4] if emit_k else None
-            ut = res.pop(0)
-            divh_part = res.pop(0)
-            usnew = (
-                res.pop(0)[:, :, 4:-4] if usnew_coeff is not None else None
-            )
-            q = projection_2d(divh_part)
-            # ut keeps the kernel's y-padded extent (the correction is
-            # elementwise in ut, so its pad rows are discarded below);
-            # only the x pad is exchanged for shape conformity
-            u_next = pressure_correct_3d(
-                _halo_pad(ut, 1, AXIS, mx, 1, 1),
-                _pad_blk2d(q), dxs, **kw,
-            )[:, 1:-1, 4:-4]
-            return k, u_next, usnew
+    def _inv_scale(lam_x, lam_y, lam_z):
+        """This shard's block of the inverse-Laplacian multiplier, built
+        in-graph from 1-D eigenvalue slices (no n^3 constant); the
+        zero-mean mode (den == 0) is pinned to 0."""
+        den = lam_x[:, None, None] + lam_y[None, :, None] + lam_z[None, None, :]
+        return jnp.where(den == 0, 0.0, -1.0 / jnp.where(den == 0, 1.0, den))
 
     if psolver == "pencil" and not has_y:
-        inv_denom_full = jnp.asarray(_denom((nx, ny, nzh)), dtype)
         ly_loc = ny // mx
 
         def poisson_local(div):
             """x-slab pencil rFFT: rfft z + fft y locally, all_to_all to
-            localize x, fft x, scale, inverse chain.  Adjacent local 1-D
-            FFTs are barriered so XLA can't re-fuse them into the
-            multi-axis TPU kernel (inaccurate >= 2^24 elems; ops/dft.py)."""
+            localize x, fft x, scale, inverse chain."""
             idx = jax.lax.axis_index(AXIS)
             fh = jnp.fft.rfft(div, axis=2)
-            fh = jnp.fft.fft(jax.lax.optimization_barrier(fh), axis=1)
+            fh = jnp.fft.fft(fh, axis=1)
             fh = jax.lax.all_to_all(
                 fh, AXIS, split_axis=1, concat_axis=0, tiled=True
             )
             fh = jnp.fft.fft(fh, axis=0)
-            scale = jax.lax.dynamic_slice_in_dim(
-                inv_denom_full, idx * ly_loc, ly_loc, 1
+            scale = _inv_scale(
+                _lam(0, nx),
+                jax.lax.dynamic_slice_in_dim(
+                    _lam(1, ny), idx * ly_loc, ly_loc
+                ),
+                _lam(2, nzh),
             )
             fh = fh * scale.astype(fh.dtype)
             fh = jnp.fft.ifft(fh, axis=0)
@@ -597,14 +352,12 @@ def make_halo_fast_step(setup, method, mesh, *, psolver="pencil",
                 fh, AXIS, split_axis=0, concat_axis=1, tiled=True
             )
             fh = jnp.fft.ifft(fh, axis=1)
-            fh = jax.lax.optimization_barrier(fh)
             return jnp.fft.irfft(fh, nz, axis=2).astype(div.dtype)
 
     elif psolver == "pencil":
         assert nz % my == 0 and ny % mx == 0, (
             "2-D pencil FFT needs nz % my == 0 and ny % mx == 0"
         )
-        inv_denom_full = jnp.asarray(_denom((nx, ny, nz)), dtype)
         lyx = ny // mx  # y-block per x-shard after the x transpose
         lzy = nz // my  # z-block per y-shard after the y transpose
 
@@ -625,10 +378,10 @@ def make_halo_fast_step(setup, method, mesh, *, psolver="pencil",
                 fh, AXIS, split_axis=1, concat_axis=0, tiled=True
             )  # (nx, lyx, lzy)
             fh = jnp.fft.fft(fh, axis=0)
-            scale = jax.lax.dynamic_slice(
-                inv_denom_full,
-                (jnp.zeros((), ix.dtype), ix * lyx, iy * lzy),
-                (nx, lyx, lzy),
+            scale = _inv_scale(
+                _lam(0, nx),
+                jax.lax.dynamic_slice_in_dim(_lam(1, ny), ix * lyx, lyx),
+                jax.lax.dynamic_slice_in_dim(_lam(2, nz), iy * lzy, lzy),
             )
             fh = fh * scale.astype(fh.dtype)
             fh = jnp.fft.ifft(fh, axis=0)
@@ -718,466 +471,9 @@ def make_halo_fast_step(setup, method, mesh, *, psolver="pencil",
         )
         return u - G
 
-    def stage_project(base, k, coeff):
-        """Projected stage update P(base + coeff*k) on the per-op kernel
-        paths (non-fused Pallas) or the shift graph."""
-        if use_pallas_local:
-            ut_p, div_p = stage_div_3d(
-                _pad_x(base), _pad_x(k), coeff, dxs, **kw
-            )
-            p = poisson_local(div_p[1:-1])
-            return pressure_correct_3d(ut_p, _pad_x(p), dxs, **kw)[:, 1:-1]
-        if use_pallas_2d:
-            ut_p, div_p = stage_div_3d(
-                _pad_blk2d(base), _pad_blk2d(k), coeff, dxs, **kw
-            )
-            p = poisson_local(div_p[1:-1, 4:-4])
-            return pressure_correct_3d(
-                ut_p, _pad_blk2d(p), dxs, **kw
-            )[:, 1:-1, 4:-4]
-        return project_local(base + coeff * k)
-
     # ---------------- steppers ----------------
-    use_merged = False
-    if use_fused_local:
-        # Fully-fused per-shard chain (the single-chip production path,
-        # carried to shards): momentum + in-kernel tableau accumulation
-        # + divergence + z/y forward transform in ONE HBM pass per
-        # stage, all_to_all'd eigen pass B, then the fused correction
-        # consuming qhat (z/y inverse in-kernel).  Halo ghost planes
-        # replace the single-chip modular wrap.
-        prec = projection_precision
-
-        _smag_d2 = float(sum(d * d for d in dxs)) if _smag else None
-
-        def smag_arg(theta):
-            if not _smag:
-                return None
-            th = jnp.asarray(0.17 if theta is None else theta, dtype)
-            return (th, _smag_d2)
-
-        def force_nosmag(temp, bf):
-            """Per-stage force stream EXCLUDING the Smagorinsky term
-            (which is fused into the stage kernel): steady body force +
-            buoyancy."""
-            out = bf
-            if temp is not None:
-                b = alpha2 * buoyancy_force(temp)
-                if out is None:
-                    out = jnp.zeros(
-                        (3,) + temp.shape, temp.dtype
-                    ).at[gdir].set(b)
-                else:
-                    out = out.at[gdir].add(b)
-            return out
-
-        def fused_stage_hat(u, streams, streams_lo, coeffs, *, force,
-                            emit_k=True, usnew_coeff=None, usnew_base=None,
-                            smag=None):
-            """Stage kernel + pass B with the correction DEFERRED:
-            returns (k|None, ut, qhat, usnew|None) — feed (ut, qhat) to
-            `correct` or let the next `merged_stage` reconstruct u in
-            VMEM (the single-chip merged chain, carried to shards)."""
-            glo, ghi = (3, 2) if smag is not None else (2, 1)
-            res = momentum_stage_divhat_halo_3d(
-                u, _x_lo(u, glo), _x_hi(u, ghi),
-                streams, streams_lo, coeffs, visc_static, dxs,
-                projd["Vinv"], projd["VinvT"],
-                emit_k=emit_k, usnew_coeff=usnew_coeff,
-                bodyforce=force,
-                bodyforce_lo=(_x_lo(force, 1) if force is not None else None),
-                usnew_base=usnew_base, smag=smag,
-                precision=prec, **kw,
-            )
-            res = list(res)
-            k = res.pop(0) if emit_k else None
-            ut, divhat = res.pop(0), res.pop(0)
-            usnew = res.pop(0) if usnew_coeff is not None else None
-            return k, ut, passB_dist(divhat), usnew
-
-        def merged_stage(ut, qhat, streams, streams_lo, coeffs, *, force,
-                         emit_k=False, usnew_coeff=None, usnew_base=None,
-                         smag=None, emit_u=False):
-            """`fused_stage_hat` with the PREVIOUS stage's pressure
-            correction merged in (per-shard `pcmsd_hat_halo_3d`): u is
-            reconstructed in VMEM from halo'd (ut, qhat) ghost planes
-            and never round-trips HBM between interior stages.
-            ``streams[0] is RECON`` (step-boundary merge) uses the
-            reconstruction itself as the tableau base; ``emit_u``
-            appends the reconstructed u to the return."""
-            glo, ghi = (3, 2) if smag is not None else (2, 1)
-            res = pcmsd_hat_halo_3d(
-                ut, _x_lo(ut, glo), _x_hi(ut, ghi),
-                qhat, _x_lo(qhat, glo), _x_hi(qhat, ghi + 1),
-                streams, streams_lo, coeffs, visc_static, dxs, projd,
-                emit_k=emit_k, usnew_coeff=usnew_coeff,
-                bodyforce=force,
-                bodyforce_lo=(_x_lo(force, 1) if force is not None else None),
-                usnew_base=usnew_base, smag=smag,
-                precision=prec, emit_u=emit_u, **kw,
-            )
-            res = list(res)
-            k = res.pop(0) if emit_k else None
-            ut2, divhat = res.pop(0), res.pop(0)
-            usnew = res.pop(0) if usnew_coeff is not None else None
-            out = (k, ut2, passB_dist(divhat), usnew)
-            if emit_u:
-                out = out + (res.pop(0),)
-            return out
-
-        def correct(ut, qhat):
-            return pressure_correct_qhat_halo_3d(
-                ut, qhat, _x_hi(qhat, 1), dxs, projd["V"], projd["VT"],
-                precision=prec, **kw,
-            )
-
-        def fused_stage(u, streams, streams_lo, coeffs, *, force,
-                        emit_k=True, usnew_coeff=None, usnew_base=None,
-                        smag=None):
-            k, ut, qhat, usnew = fused_stage_hat(
-                u, streams, streams_lo, coeffs, force=force, emit_k=emit_k,
-                usnew_coeff=usnew_coeff, usnew_base=usnew_base, smag=smag,
-            )
-            return k, correct(ut, qhat), usnew
-
-        def _merge_on(n_dma):
-            if merge != "auto":
-                return bool(merge)
-            return pcmsd_halo_profitable(lx, n_dma, ny * nz,
-                                         with_smag=_smag)
-
-        if isinstance(method, ExplicitRungeKuttaMethod):
-            A, c, ns = method.A, method.c, method.nstage
-            # b-row accumulator (see ops/fastpath.py): with classic-RK44
-            # row structure no stage k ever round-trips HBM — the final
-            # combination accumulates as a fused usnew output.
-            lowstorage_rows = ns >= 2 and all(
-                A[i][j] == 0.0 for i in range(ns - 1) for j in range(i)
-            )
-            # Merged chain (the single-chip production interior-stage
-            # kernel, carried to shards): u materializes in HBM once per
-            # step.  Needs the b-row structure and no temperature (the
-            # temp RHS reads the corrected u, which never materializes).
-            use_merged = (
-                lowstorage_rows and tq is None
-                and _merge_on(2 + (bf_int is not None))
-            )
-
-            def step_merged(u, temp, dt, theta, bf):
-                ustart = u
-                ustart_lo = _x_lo(ustart, 1)
-                force = force_nosmag(None, bf)
-                acc = ustart
-                ut = qhat = None
-                for i in range(ns):
-                    last = i == ns - 1
-                    bcoef = A[ns - 1][i]
-                    unc = dt * bcoef if (bcoef != 0.0 and not last) else None
-                    ub = None if (unc is None or acc is ustart) else acc
-                    if i == 0:
-                        _, ut, qhat, usnew = fused_stage_hat(
-                            u, (ustart,), (ustart_lo,), (dt * A[i][i],),
-                            force=force, emit_k=False, usnew_coeff=unc,
-                            smag=smag_arg(theta),
-                        )
-                    else:
-                        st = (acc,) if last else (ustart,)
-                        st_lo = (
-                            (_x_lo(acc, 1),) if last else (ustart_lo,)
-                        )
-                        _, ut, qhat, usnew = merged_stage(
-                            ut, qhat, st, st_lo, (dt * A[i][i],),
-                            force=force, emit_k=False, usnew_coeff=unc,
-                            usnew_base=ub, smag=smag_arg(theta),
-                        )
-                    if unc is not None:
-                        acc = usnew
-                return correct(ut, qhat), temp
-
-            def step_hat_local(ut, qhat, dt, theta, bf):
-                """`step_merged` on a per-shard (ut, qhat) hat carry:
-                stage 0 reconstructs the previous step's corrected u IN
-                VMEM (RECON base) and the final correction is deferred
-                to the NEXT step — u never round-trips HBM between scan
-                steps (the single-chip step-boundary merge of
-                ops/fastpath.py `step_merged_hat`, carried to shards;
-                the stage-0 ghost exchange moves from u to (ut, qhat),
-                both already exchanged for the interior stages)."""
-                force = force_nosmag(None, bf)
-                ustart = ustart_lo = acc = None
-                for i in range(ns):
-                    last = i == ns - 1
-                    bcoef = A[ns - 1][i]
-                    unc = dt * bcoef if (bcoef != 0.0 and not last) else None
-                    if i == 0:
-                        # the emitted reconstruction is only read back
-                        # as ustart by stages i >= 1
-                        res = merged_stage(
-                            ut, qhat, (RECON,), (RECON,), (dt * A[i][i],),
-                            force=force, emit_k=False, usnew_coeff=unc,
-                            smag=smag_arg(theta), emit_u=ns > 1,
-                        )
-                        if ns > 1:
-                            _, ut, qhat, usnew, ustart = res
-                            ustart_lo = _x_lo(ustart, 1)
-                        else:
-                            _, ut, qhat, usnew = res
-                        acc = usnew if unc is not None else ustart
-                    else:
-                        ub = None if (unc is None or acc is ustart) else acc
-                        st = (acc,) if last else (ustart,)
-                        st_lo = (
-                            (_x_lo(acc, 1),) if last else (ustart_lo,)
-                        )
-                        _, ut, qhat, usnew = merged_stage(
-                            ut, qhat, st, st_lo, (dt * A[i][i],),
-                            force=force, emit_k=False, usnew_coeff=unc,
-                            usnew_base=ub, smag=smag_arg(theta),
-                        )
-                        if unc is not None:
-                            acc = usnew
-                return ut, qhat
-
-            def step_local(u, temp, dt, theta, bf):
-                if use_merged:
-                    return step_merged(u, temp, dt, theta, bf)
-                ustart = u
-                ustart_lo = _x_lo(ustart, 1)
-                tempstart = temp
-                ku, ku_lo, kt = [], [], []
-                acc = ustart
-                for i in range(ns):
-                    if temp is not None:
-                        kt.append(temp_rhs_local(u, temp))
-                    if lowstorage_rows:
-                        if i == ns - 1:
-                            _, u, _ = fused_stage(
-                                u, (acc,), (_x_lo(acc, 1),),
-                                (dt * A[i][i],),
-                                force=force_nosmag(temp, bf),
-                                smag=smag_arg(theta),
-                                emit_k=False,
-                            )
-                        else:
-                            bcoef = A[ns - 1][i]
-                            unc = dt * bcoef if bcoef != 0.0 else None
-                            _, u, usnew = fused_stage(
-                                u, (ustart,), (ustart_lo,),
-                                (dt * A[i][i],),
-                                force=force_nosmag(temp, bf),
-                                smag=smag_arg(theta),
-                                emit_k=False,
-                                usnew_coeff=unc,
-                                usnew_base=(
-                                    acc
-                                    if unc is not None and acc is not ustart
-                                    else None
-                                ),
-                            )
-                            if usnew is not None:
-                                acc = usnew
-                    else:
-                        streams, streams_lo = [ustart], [ustart_lo]
-                        coeffs = []
-                        for j in range(i):
-                            if A[i][j] != 0.0:
-                                streams.append(ku[j])
-                                streams_lo.append(ku_lo[j])
-                                coeffs.append(dt * A[i][j])
-                        coeffs.append(dt * A[i][i])
-                        k, u, _ = fused_stage(
-                            u, streams, streams_lo, coeffs,
-                            force=force_nosmag(temp, bf),
-                            smag=smag_arg(theta),
-                            emit_k=(i < ns - 1),
-                        )
-                        if k is not None:
-                            ku.append(k)
-                            ku_lo.append(_x_lo(k, 1))
-                    if temp is not None:
-                        temp = tempstart
-                        for j in range(i + 1):
-                            if A[i][j] != 0.0:
-                                temp = temp + dt * A[i][j] * kt[j]
-                return u, temp
-
-        else:  # LMWray3
-            a_, b_, c_ = method.a, method.b, method.c
-            ns = len(a_)
-            use_merged = tq is None and _merge_on(1 + (bf_int is not None))
-
-            def step_merged(u, temp, dt, theta, bf):
-                ustart = u
-                force = force_nosmag(None, bf)
-                _, ut, qhat, usnew = fused_stage_hat(
-                    u, (ustart,), (_x_lo(ustart, 1),), (dt * a_[0],),
-                    force=force, emit_k=False,
-                    usnew_coeff=(dt * b_[0] if ns > 1 else None),
-                    smag=smag_arg(theta),
-                )
-                if ns > 1:
-                    ustart = usnew
-                for i in range(1, ns):
-                    unc = dt * b_[i] if i < ns - 1 else None
-                    _, ut, qhat, usnew = merged_stage(
-                        ut, qhat, (ustart,), (_x_lo(ustart, 1),),
-                        (dt * a_[i],),
-                        force=force, emit_k=False, usnew_coeff=unc,
-                        smag=smag_arg(theta),
-                    )
-                    if unc is not None:
-                        ustart = usnew
-                return correct(ut, qhat), temp
-
-            def step_hat_local(ut, qhat, dt, theta, bf):
-                """`step_merged` on a (ut, qhat) hat carry (see the ERK
-                twin).  LMWray3's later stages only read the ACCUMULATOR
-                (usnew), never ustart itself, so stage 0 skips even the
-                emit_u write — the step-boundary merge saves a full u
-                write AND read per step here."""
-                force = force_nosmag(None, bf)
-                _, ut, qhat, usnew = merged_stage(
-                    ut, qhat, (RECON,), (RECON,), (dt * a_[0],),
-                    force=force, emit_k=False,
-                    usnew_coeff=(dt * b_[0] if ns > 1 else None),
-                    smag=smag_arg(theta),
-                )
-                ustart = usnew
-                for i in range(1, ns):
-                    unc = dt * b_[i] if i < ns - 1 else None
-                    _, ut, qhat, usnew = merged_stage(
-                        ut, qhat, (ustart,), (_x_lo(ustart, 1),),
-                        (dt * a_[i],),
-                        force=force, emit_k=False, usnew_coeff=unc,
-                        smag=smag_arg(theta),
-                    )
-                    if unc is not None:
-                        ustart = usnew
-                return ut, qhat
-
-            def step_local(u, temp, dt, theta, bf):
-                if use_merged:
-                    return step_merged(u, temp, dt, theta, bf)
-                ustart = u
-                tempstart = temp
-                for i in range(ns):
-                    dtemp = (
-                        temp_rhs_local(u, temp) if temp is not None else None
-                    )
-                    _, un, usnew = fused_stage(
-                        u, (ustart,), (_x_lo(ustart, 1),), (dt * a_[i],),
-                        force=force_nosmag(temp, bf),
-                        smag=smag_arg(theta),
-                        emit_k=False,
-                        usnew_coeff=(dt * b_[i] if i < ns - 1 else None),
-                    )
-                    u = un
-                    if temp is not None:
-                        temp = tempstart + dt * a_[i] * dtemp
-                        if i < ns - 1:
-                            tempstart = tempstart + dt * b_[i] * dtemp
-                    if i < ns - 1:
-                        ustart = usnew
-                return u, temp
-
-    elif use_fused_2d:
-        # 2-D pencil fused chain: same stepper shapes as the 1-D fused
-        # (non-merged) path, with `fused_stage_2d` carrying the stage.
-        # Buoyancy rides the force stream; the temperature RHS stays on
-        # the modular kernel path (as on the 1-D chain).
-        def force_buoy(temp, bf):
-            out = bf
-            if temp is not None:
-                b = alpha2 * buoyancy_force(temp)
-                if out is None:
-                    out = jnp.zeros(
-                        (3,) + temp.shape, temp.dtype
-                    ).at[gdir].set(b)
-                else:
-                    out = out.at[gdir].add(b)
-            return out
-
-        if isinstance(method, ExplicitRungeKuttaMethod):
-            A, c, ns = method.A, method.c, method.nstage
-            lowstorage_rows = ns >= 2 and all(
-                A[i][j] == 0.0 for i in range(ns - 1) for j in range(i)
-            )
-
-            def step_local(u, temp, dt, theta, bf):
-                ustart, tempstart = u, temp
-                ku, kt = [], []
-                acc = ustart
-                for i in range(ns):
-                    if temp is not None:
-                        kt.append(temp_rhs_local(u, temp))
-                    force = force_buoy(temp, bf)
-                    if lowstorage_rows:
-                        if i == ns - 1:
-                            _, u, _ = fused_stage_2d(
-                                u, (acc,), (dt * A[i][i],), force=force,
-                                emit_k=False,
-                            )
-                        else:
-                            bcoef = A[ns - 1][i]
-                            unc = dt * bcoef if bcoef != 0.0 else None
-                            _, u, usnew = fused_stage_2d(
-                                u, (ustart,), (dt * A[i][i],), force=force,
-                                emit_k=False, usnew_coeff=unc,
-                                usnew_base=(
-                                    acc
-                                    if unc is not None and acc is not ustart
-                                    else None
-                                ),
-                            )
-                            if usnew is not None:
-                                acc = usnew
-                    else:
-                        streams, coeffs = [ustart], []
-                        for j in range(i):
-                            if A[i][j] != 0.0:
-                                streams.append(ku[j])
-                                coeffs.append(dt * A[i][j])
-                        coeffs.append(dt * A[i][i])
-                        k, u, _ = fused_stage_2d(
-                            u, tuple(streams), coeffs, force=force,
-                            emit_k=(i < ns - 1),
-                        )
-                        if k is not None:
-                            ku.append(k)
-                    if temp is not None:
-                        temp = tempstart
-                        for j in range(i + 1):
-                            if A[i][j] != 0.0:
-                                temp = temp + dt * A[i][j] * kt[j]
-                return u, temp
-
-        else:  # LMWray3
-            a_, b_, c_ = method.a, method.b, method.c
-            ns = len(a_)
-
-            def step_local(u, temp, dt, theta, bf):
-                ustart, tempstart = u, temp
-                for i in range(ns):
-                    dtemp = (
-                        temp_rhs_local(u, temp) if temp is not None else None
-                    )
-                    _, un, usnew = fused_stage_2d(
-                        u, (ustart,), (dt * a_[i],),
-                        force=force_buoy(temp, bf),
-                        emit_k=False,
-                        usnew_coeff=(dt * b_[i] if i < ns - 1 else None),
-                    )
-                    u = un
-                    if temp is not None:
-                        temp = tempstart + dt * a_[i] * dtemp
-                        if i < ns - 1:
-                            tempstart = tempstart + dt * b_[i] * dtemp
-                    if i < ns - 1:
-                        ustart = usnew
-                return u, temp
-
-    elif isinstance(method, ExplicitRungeKuttaMethod):
-        A, c, ns = method.A, method.c, method.nstage
+    if isinstance(method, ExplicitRungeKuttaMethod):
+        A, ns = method.A, method.nstage
 
         def step_local(u, temp, dt, theta, bf):
             ustart, tstart_ = u, temp
@@ -1186,25 +482,20 @@ def make_halo_fast_step(setup, method, mesh, *, psolver="pencil",
                 ku.append(momentum_local(u, temp, theta, bf))
                 if temp is not None:
                     kt.append(temp_rhs_local(u, temp))
-                if use_pallas_local or use_pallas_2d:
-                    base = ustart
-                    for j in range(i):
-                        if A[i][j] != 0.0:
-                            base = base + dt * A[i][j] * ku[j]
-                    u = stage_project(base, ku[i], dt * A[i][i])
-                else:
-                    u = ustart
-                    for j in range(i + 1):
+                u = ustart
+                for j in range(i + 1):
+                    if A[i][j] != 0.0:
                         u = u + dt * A[i][j] * ku[j]
-                    u = project_local(u)
+                u = project_local(u)
                 if temp is not None:
                     temp = tstart_
                     for j in range(i + 1):
-                        temp = temp + dt * A[i][j] * kt[j]
+                        if A[i][j] != 0.0:
+                            temp = temp + dt * A[i][j] * kt[j]
             return u, temp
 
-    else:  # LMWray3, per-op / shift-graph path
-        a_, b_, c_ = method.a, method.b, method.c
+    else:  # LMWray3
+        a_, b_ = method.a, method.b
         ns = len(a_)
 
         def step_local(u, temp, dt, theta, bf):
@@ -1213,7 +504,7 @@ def make_halo_fast_step(setup, method, mesh, *, psolver="pencil",
             for i in range(ns):
                 du = momentum_local(u, temp, theta, bf)
                 dtemp = temp_rhs_local(u, temp) if temp is not None else None
-                u = stage_project(ustart, du, dt * a_[i])
+                u = project_local(ustart + dt * a_[i] * du)
                 if temp is not None:
                     temp = tempstart + dt * a_[i] * dtemp
                 if i < ns - 1:
@@ -1247,14 +538,8 @@ def make_halo_fast_step(setup, method, mesh, *, psolver="pencil",
     )
     out_specs = (uspec, sspec) if with_temp else uspec
 
-    use_pallas_any = use_pallas_local or use_pallas_2d
     raw = jax.shard_map(
-        # check_vma=False only where required (pallas_call outputs don't
-        # carry varying-mesh annotations); pure-collective configs keep
-        # the replication checking on so a psum/ppermute mistake errors
-        # instead of silently producing wrong per-shard values.
-        _stepl, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-        check_vma=not use_pallas_any,
+        _stepl, mesh=mesh, in_specs=in_specs, out_specs=out_specs
     )
     dargs = ()
     if donate:
@@ -1276,64 +561,7 @@ def make_halo_fast_step(setup, method, mesh, *, psolver="pencil",
     def step(state, dt, theta=None):
         return _call(step_sharded, state, dt, theta)
 
-    # Driver hooks (`solve_unsteady(halo=True)`): trace the un-jitted
+    # Driver hook (`solve_unsteady(halo=True)`): trace the un-jitted
     # shard_map inside the driver's own jit/scan.
     step.raw = lambda state, dt, theta=None: _call(raw, state, dt, theta)
-    step.fused = use_fused_local or use_fused_2d
-    step.merged = use_fused_local and use_merged
-    step.pallas = use_pallas_any
-
-    # Step-boundary merge across scan steps (the single-chip hat carry
-    # of ops/fastpath.py, carried to shards): the driver's fixed-dt scan
-    # chunks run over a sharded (ut, qhat) HatState — the final pressure
-    # correction of step s rides stage 0 of step s+1, so the corrected
-    # velocity never materializes in HBM inside a chunk.
-    step.hat = None
-    if use_fused_local and use_merged:
-        from ..ops.fastpath import HatState
-
-        def _stephl(ut, qhat, *args):
-            it = iter(args)
-            bf = next(it) if with_bf else None
-            dt = next(it)
-            theta = next(it)
-            return step_hat_local(ut, qhat, dt, theta, bf)
-
-        hat_in = (
-            (uspec, sspec) + ((uspec,) if with_bf else ()) + (P(), P())
-        )
-        raw_hat = jax.shard_map(
-            _stephl, mesh=mesh, in_specs=hat_in,
-            out_specs=(uspec, sspec), check_vma=False,
-        )
-        raw_corr = jax.shard_map(
-            lambda ut, qhat: correct(ut, qhat), mesh=mesh,
-            in_specs=(uspec, sspec), out_specs=uspec, check_vma=False,
-        )
-        qshard = NamedSharding(mesh, sspec)
-
-        def to_hat(state):
-            # qhat = 0 is an exact identity: u - grad(invtransform(0)) = u
-            qhat = jax.lax.with_sharding_constraint(
-                jnp.zeros((nx, ny, nz), dtype), qshard
-            )
-            return HatState(ut=state.u, qhat=qhat, temp=state.temp,
-                            t=state.t, n=state.n)
-
-        def step_hat(h, dt, theta=None):
-            thj = jnp.asarray(
-                0.0 if theta is None else theta, dtype
-            )
-            args = (h.ut, h.qhat)
-            if with_bf:
-                args += (bf_int,)
-            ut, qhat = raw_hat(*args, jnp.asarray(dt, dtype), thj)
-            return HatState(ut=ut, qhat=qhat, temp=h.temp, t=h.t + dt,
-                            n=h.n + 1)
-
-        def from_hat(h):
-            return StepperState(u=raw_corr(h.ut, h.qhat), temp=h.temp,
-                                t=h.t, n=h.n)
-
-        step.hat = (to_hat, step_hat, from_hat)
     return step

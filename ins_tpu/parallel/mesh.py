@@ -3,8 +3,7 @@
 No reference counterpart (the reference is single-device; SURVEY.md §2.5).
 Design: the `(D, *N)` velocity / `(N...)` scalar fields are sharded over
 spatial mesh axes ("x", "y"[, "z"]); XLA GSPMD inserts halo exchanges for
-the radius-1 stencils and all-to-all transposes for the FFT Poisson solve
-over ICI. Ensemble/batch axes for closure training shard over a leading
+the radius-1 stencils and all-to-all transposes for the FFT Poisson solve. Ensemble/batch axes for closure training shard over a leading
 "b" axis (data parallel).
 """
 

@@ -131,11 +131,9 @@ def get_streamfunction(u, setup):
     k2[0, 0] = 1.0
     inv_k2 = 1.0 / k2
     inv_k2[0, 0] = 0.0  # zero-mean mode folded in (no runtime scatter)
-    from .ops.dft import irfftn, rfftn  # TPU-safe per-axis decomposition
-
-    what = rfftn(wi)
+    what = jnp.fft.rfftn(wi)
     psihat = what * jnp.asarray(inv_k2, what.dtype)
-    psi = irfftn(psihat, wi.shape).astype(u.dtype)
+    psi = jnp.fft.irfftn(psihat, wi.shape).astype(u.dtype)
     out = jnp.zeros(g.N, u.dtype)
     return out.at[ip].set(psi)
 
@@ -224,10 +222,8 @@ def observespectrum(setup, *, nupdate=1, npoint=100):
     @jax.jit
     def ehat_of(u):
         e = 0.0
-        from .ops.dft import fftn  # per-axis on TPU (fused 3D inaccurate)
-
         for a in range(D):
-            uhat = fftn(u[a][ip])
+            uhat = jnp.fft.fftn(u[a][ip])
             uhat = uhat[tuple(slice(0, k) for k in K)]
             e = e + jnp.abs(uhat) ** 2 / (2 * float(np.prod(g.Np)) ** 2)
         return observe_spectrum(e.astype(u.dtype), st)
@@ -307,8 +303,8 @@ def jax_profiler(logdir="profile/jax_trace", *, start_n=0, stop_n=None,
                  nupdate=1):
     """Processor capturing a `jax.profiler` device trace of the run
     (SURVEY §5.1 — the reference has only a wall-clock `timelogger`,
-    src/processors.jl:45-72; on TPU the profiler records per-op HLO
-    timelines viewable in TensorBoard/XProf).
+    src/processors.jl:45-72; the profiler records per-op device
+    timelines viewable in TensorBoard/XProf or Perfetto).
 
     Tracing starts at the first update with `state.n >= start_n` and stops
     at `state.n >= stop_n` (or at `finalize`). Because processors run at

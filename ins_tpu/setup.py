@@ -1,6 +1,6 @@
 """Problem setup.
 
-TPU-native equivalent of IncompressibleNavierStokes.jl `src/setup.jl`:
+Equivalent of IncompressibleNavierStokes.jl `src/setup.jl`:
 `Setup` is a frozen pytree dataclass (arrays traced, config static) instead
 of a NamedTuple; `temperature_equation` mirrors the three
 non-dimensionalization schemes (src/setup.jl:56-86).

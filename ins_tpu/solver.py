@@ -2,8 +2,8 @@
 
 Re-design of IncompressibleNavierStokes.jl `src/solver.jl`. The hot loop is
 a jitted `lax.scan` over chunks of steps; processors (observability/I-O)
-run host-side between chunks, at their `nupdate` decimation — the TPU-native
-equivalent of the reference's per-step Observable updates
+run host-side between chunks, at their `nupdate` decimation — the
+accelerator-side equivalent of the reference's per-step Observable updates
 (src/solver.jl:49-88). Adaptive time stepping (CFL) runs the step in a
 host-driven loop with a jitted CFL estimator (src/solver.jl:101-125).
 """
@@ -78,9 +78,8 @@ def _chunk_sizes(nstep: int, chunk: int):
 
 # Compiled step/scan cache: repeated solve_unsteady calls with the same
 # (setup, method, psolver) reuse the jitted functions instead of
-# re-tracing fresh closures (compilation is expensive on remote-compile
-# backends). Values keep strong refs to the keys' objects so ids stay
-# valid.
+# re-tracing fresh closures. Values keep strong refs to the keys' objects
+# so ids stay valid.
 _compiled_cache: dict = {}
 
 
@@ -115,11 +114,7 @@ def solve_unsteady(
     mesh=None,
     halo=False,
     halo_psolver="pencil",
-    halo_interpret=False,
-    fastpath_interpret=False,
     nan_guard=True,
-    projection_precision=None,
-    stream_dtype=None,
 ):
     """Solve the unsteady problem on `tlims`.
 
@@ -129,32 +124,16 @@ def solve_unsteady(
 
     `mesh`: optional `jax.sharding.Mesh` for multi-chip domain
     decomposition — the state is placed with spatial sharding and XLA
-    GSPMD inserts the halo exchanges / FFT transposes over ICI (the
-    reference is single-device; SURVEY.md §2.5).
-
-    `halo_interpret=True`: force the per-shard Pallas kernels in
-    interpreter mode (virtual-mesh CPU testing of the production halo
-    path — including the sharded hat carry).
-
-    `fastpath_interpret=True`: force the single-chip FUSED Pallas stage
-    chain (incl. the merged/hat-carry step functions) in interpreter
-    mode — CPU testing of the exact production single-chip path
-    through the full driver (scan chunks, adaptive dt, processors).
+    GSPMD inserts the halo exchanges / FFT transposes (the reference is
+    single-device; SURVEY.md §2.5).
 
     `halo=True` (requires `mesh`): step with the explicitly-scheduled
-    shard_map path instead of GSPMD — ppermute halo exchanges, per-shard
-    fused Pallas kernels, all_to_all'd eigen/pencil pressure solve
-    (`parallel/halo.py`), with the full driver feature set (processors,
-    NaN guard, checkpointing, adaptive CFL — whose min-reductions GSPMD
-    lowers to psums over the mesh).  3D uniform periodic only;
-    `halo_psolver`: "pencil" (FFT/eigen) or "cg".
-
-    `projection_precision`: eigen-transform precision on the Pallas
-    pressure-projection path — "manualhigh" (default, fastest, residual
-    ~4e-5) or "highest" (f32-exact); see docs/manual/precision.md.
-    The single-chip fast path and the halo path honor it; setting it
-    explicitly on a path that cannot (GSPMD mesh, ghosted slice graph)
-    warns.
+    shard_map path instead of GSPMD — ppermute halo exchanges, the
+    per-shard roll graph, an all_to_all'd pencil FFT or psum'd CG
+    pressure solve (`parallel/halo.py`), with the full driver feature
+    set (processors, NaN guard, checkpointing, adaptive CFL — whose
+    min-reductions GSPMD lowers to psums over the mesh).  3D uniform
+    periodic only; `halo_psolver`: "pencil" (FFT) or "cg".
 
     `nan_guard`: one cheap `isfinite` reduction per scan chunk (SURVEY
     §5.3). On divergence the run aborts with `SolverDivergedError`
@@ -165,26 +144,6 @@ def solve_unsteady(
         method = RK44()
     if psolver is None:
         psolver = default_psolver(setup)
-    if (
-        getattr(psolver, "uses_host_callback", False)
-        and jax.default_backend() != "cpu"
-    ):
-        # psolver_direct round-trips every Poisson RHS to the host via
-        # jax.pure_callback — documented-unsupported in hot TPU loops.
-        # Fall back to the TPU-native fast-diagonalization direct solve
-        # (same math: exact separable solve; ops/fdm.py).
-        import warnings
-
-        from .ops.fdm import psolver_fdm
-
-        warnings.warn(
-            "psolver_direct uses a host callback per solve, which is "
-            "unsupported in TPU hot loops; solve_unsteady is substituting "
-            "the TPU-native psolver_fdm direct solver. Pass psolver_fdm/"
-            "psolver_cg/psolver_spectral explicitly to silence this.",
-            stacklevel=2,
-        )
-        psolver = psolver_fdm(setup)
     processors = dict(processors or {})
     if halo and mesh is None:
         raise ValueError("halo=True requires a mesh")
@@ -222,44 +181,20 @@ def solve_unsteady(
             from .ops.channelpath import channelpath_applicable
 
             use_channel = channelpath_applicable(setup, method)
-        if projection_precision is not None and not (
-            use_fast or halo or use_channel
-        ):
-            import warnings
-
-            warnings.warn(
-                "projection_precision is only honored on the single-chip "
-                "fast path and the halo path; this configuration ignores "
-                "it",
-                stacklevel=3,
-            )
         if halo:
             from .parallel.halo import make_halo_fast_step
 
-            halo_step = make_halo_fast_step(
-                setup, method, mesh, psolver=halo_psolver,
-                projection_precision=projection_precision or "manualhigh",
-                pallas_interpret=halo_interpret,
-            )
-
-            def step(s, dtj, th):
-                # un-jitted shard_map body: traced inside the driver's
-                # own jit/scan (nested donation is dropped by jit-of-jit)
-                return halo_step.raw(s, dtj, th)
+            # un-jitted shard_map body: traced inside the driver's own
+            # jit/scan (nested donation is dropped by jit-of-jit)
+            step = make_halo_fast_step(
+                setup, method, mesh, psolver=halo_psolver
+            ).raw
 
             strip = jax.jit(strip_state)
             regh_state = jax.jit(reghost_state)
             regh = jax.jit(reghost)
         elif use_fast:
-            fast_step = make_fast_timestep(
-                setup,
-                method,
-                projection_precision=projection_precision or "manualhigh",
-                _fused_interpret=fastpath_interpret,
-            )
-
-            def step(s, dtj, th):
-                return fast_step(s, dtj, th)
+            step = make_fast_timestep(setup, method)
 
             strip = jax.jit(strip_state)
             regh_state = jax.jit(reghost_state)
@@ -271,10 +206,7 @@ def solve_unsteady(
                 strip_channel,
             )
 
-            ch_step = make_channel_timestep(setup, method)
-
-            def step(s, dtj, th):
-                return ch_step(s, dtj, th)
+            step = make_channel_timestep(setup, method)
 
             strip = jax.jit(lambda s: s._replace(u=strip_channel(s.u)))
             regh_state = jax.jit(
@@ -291,8 +223,7 @@ def solve_unsteady(
             strip = regh = regh_state = None
 
         # One jit for stepper creation: AB-CN/one-leg initialization
-        # includes a pressure solve (expensive op-by-op on remote-compile
-        # backends)
+        # includes a pressure solve
         make_stepper = jax.jit(
             lambda u, temp, t0: create_stepper(
                 method, setup=setup, psolver=psolver, u=u, temp=temp, t=t0
@@ -300,43 +231,8 @@ def solve_unsteady(
         )
         step1 = jax.jit(step, donate_argnums=(0,))
 
-        # Step-boundary merge: fixed-dt scan chunks carry (ut, qhat)
-        # instead of u (fastpath.HatState) — the final pressure
-        # correction of each step rides stage 0 of the next, so the
-        # corrected velocity never round-trips HBM inside a chunk.
-        hat_fns = None
-        if use_fast:
-            from .ops.fastpath import make_fast_timestep_hat
-
-            hat_fns = make_fast_timestep_hat(
-                setup, method,
-                projection_precision=projection_precision or "manualhigh",
-                stream_dtype=stream_dtype,
-                _fused_interpret=fastpath_interpret,
-            )
-        elif halo:
-            # the sharded twin (parallel/halo.py `step.hat`): scan
-            # chunks carry a sharded (ut, qhat) HatState
-            hat_fns = halo_step.hat
-        elif use_channel:
-            # merged-projection channel chain: chunks carry (target, q)
-            # and each stage reconstructs the corrected velocity in VMEM
-            from .ops.channelpath import make_channel_timestep_hat
-
-            hat_fns = make_channel_timestep_hat(setup, method)
-
         @partial(jax.jit, static_argnums=(3,), donate_argnums=(0,))
         def scan_steps(s, dtj, th, nsteps):
-            if hat_fns is not None:
-                to_hat, step_hat, from_hat = hat_fns
-                h = to_hat(s)
-
-                def hbody(hi, _):
-                    return step_hat(hi, dtj, th), None
-
-                h, _ = jax.lax.scan(hbody, h, None, length=nsteps)
-                return from_hat(h)
-
             def body(si, _):
                 return step(si, dtj, th), None
 
@@ -358,19 +254,8 @@ def solve_unsteady(
             margin = jnp.asarray(1e-14, tdt) * jnp.maximum(
                 jnp.asarray(1.0, tdt), jnp.abs(tend_j)
             )
-            # Hat carry on the adaptive path too (VERDICT-r3 item 10):
-            # the while_loop advances a (ut, qhat) HatState and the
-            # pressure correction only materializes u inside the
-            # `lax.cond` CFL-recompute branch (every n_adapt steps) —
-            # when n_adapt > 1, the per-step u round-trip of the plain
-            # carry is gone.  The CFL estimate itself is also under the
-            # cond now (the previous `jnp.where` computed the full CFL
-            # reduction every step and discarded it).
-            if hat_fns is not None:
-                to_hat, step_hat, from_hat = hat_fns
-                carry0, step_b, state_of = to_hat(s), step_hat, from_hat
-            else:
-                carry0, step_b, state_of = s, step, lambda si: si
+            # The CFL estimate is under a `lax.cond`, so it only runs
+            # on the steps that recompute dt (every n_adapt steps).
 
             def cond(carry):
                 si, dtc, k = carry
@@ -380,7 +265,7 @@ def solve_unsteady(
                 si, dtc, k = carry
                 dtc = jax.lax.cond(
                     si.n % n_adapt == 0,
-                    lambda s2, d: (cfl_j * cfl_u(state_of(s2))).astype(
+                    lambda s2, d: (cfl_j * cfl_u(s2)).astype(
                         d.dtype
                     ),
                     lambda s2, d: d,
@@ -388,12 +273,12 @@ def solve_unsteady(
                 )
                 dtc = jnp.maximum(dtc, dt_min_j)
                 dt_step = jnp.minimum(dtc, tend_j - si.t).astype(tdt)
-                return (step_b(si, dt_step, th), dtc, k + 1)
+                return (step(si, dt_step, th), dtc, k + 1)
 
             si, dtc, _ = jax.lax.while_loop(
-                cond, body, (carry0, dt_cur, jnp.asarray(0, jnp.int32))
+                cond, body, (s, dt_cur, jnp.asarray(0, jnp.int32))
             )
-            return state_of(si), dtc
+            return si, dtc
 
         return dict(
             use_fast=use_fast,
@@ -411,10 +296,8 @@ def solve_unsteady(
 
     fns = _get_compiled(
         setup, method, psolver, theta is None, _builder,
-        extra=(projection_precision, halo, halo_psolver if halo else None,
-               halo_interpret if halo else None,
-               id(mesh) if halo else None, fastpath_interpret,
-               str(stream_dtype)),
+        extra=(halo, halo_psolver if halo else None,
+               id(mesh) if halo else None),
     )
     state = fns["make_stepper"](
         ustart, tempstart, jnp.asarray(tstart, setup.dtype)
@@ -462,7 +345,7 @@ def solve_unsteady(
             if path is not None and st is not None:
                 import os
 
-                ckpt = os.path.join(path, "state_diverged_last_good.msgpack")
+                ckpt = os.path.join(path, "state_diverged_last_good.npz")
                 save_checkpoint(
                     ckpt,
                     dict(u=st["u"], temp=st["temp"], t=st["t"], n=st["n"]),

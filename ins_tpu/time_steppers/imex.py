@@ -4,8 +4,8 @@ Functional ports of the *math* of IncompressibleNavierStokes.jl
 `src/time_steppers/step_ab_cn.jl` and `step_one_leg.jl` (the reference
 versions are written against its removed v1 API and are not callable;
 the governing equations are specified in methods.jl:6-132). The implicit
-diffusion solve runs as matrix-free CG under jit (a cached LU does not map
-to TPU).
+diffusion solve runs as matrix-free CG under jit (on device, instead of
+the reference's cached host LU).
 
 Startup: both methods need one step of history. Like the reference
 (methods.jl:74-132 `method_startup`; step_one_leg.jl:18-30), the first

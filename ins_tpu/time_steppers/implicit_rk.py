@@ -3,7 +3,7 @@
 The reference ships a Newton-based DAE stage solver written against its
 removed v1 API (src/time_steppers/step_implicit_runge_kutta.jl:1-462,
 not callable; `newton_type` in {:full, :approximate}, assembled Jacobian
-+ LU). This is a TPU-native redesign of the same capability: the stage
++ LU). This is an on-device redesign of the same capability: the stage
 system
 
     G(U) = U - u_0 - dt (A (x) I) f(U) = 0,   f = P o F o BC

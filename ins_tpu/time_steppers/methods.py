@@ -70,7 +70,7 @@ class LMWray3:
 class AdamsBashforthCrankNicolsonMethod:
     """IMEX: Adams-Bashforth convection + Crank-Nicolson diffusion
     (reference methods.jl:74-88). The implicit-diffusion solve runs as a
-    matrix-free CG (the reference's cached LU does not map to TPU)."""
+    matrix-free CG on device (instead of the reference's cached LU)."""
 
     alpha1: float = 1.5
     alpha2: float = -0.5

@@ -3,7 +3,8 @@
 The reference has no solver checkpointing (SURVEY.md §5.4); this is a new
 first-class component: any pytree of arrays (velocity, temperature, time,
 RNG keys, closure parameters, optimizer state) round-trips through a
-single file via flax msgpack serialization.
+single numpy `.npz` file holding the flattened leaves and the tree
+structure, which `load_checkpoint` checks against the caller's template.
 """
 
 from __future__ import annotations
@@ -13,7 +14,6 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import serialization
 
 __all__ = [
     "save_checkpoint",
@@ -23,23 +23,36 @@ __all__ = [
     "load_async_checkpoint",
 ]
 
+_TREEDEF_KEY = "__treedef__"
+
 
 def save_checkpoint(path, tree):
-    """Serialize a pytree of arrays to `path` (msgpack)."""
+    """Serialize a pytree of arrays to `path` (numpy `.npz` layout; the
+    name is used as given)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    tree = jax.tree.map(np.asarray, tree)
+    leaves, treedef = jax.tree.flatten(tree)
+    arrays = {f"leaf_{i}": np.asarray(v) for i, v in enumerate(leaves)}
+    arrays[_TREEDEF_KEY] = np.asarray(str(treedef))
     with open(path, "wb") as f:
-        f.write(serialization.to_bytes(tree))
+        np.savez(f, **arrays)
     return path
 
 
 def load_checkpoint(path, like):
     """Load a pytree saved by `save_checkpoint`; `like` provides the
-    structure (same pytree with arbitrary array values)."""
-    with open(path, "rb") as f:
-        data = f.read()
-    tree = serialization.from_bytes(like, data)
-    return jax.tree.map(jnp.asarray, tree)
+    structure (same pytree with arbitrary array values), which must match
+    the saved one."""
+    treedef = jax.tree.structure(like)
+    with np.load(path, allow_pickle=False) as data:
+        saved = str(data[_TREEDEF_KEY])
+        if saved != str(treedef):
+            raise ValueError(
+                f"checkpoint structure {saved} does not match {treedef}"
+            )
+        leaves = [
+            jnp.asarray(data[f"leaf_{i}"]) for i in range(treedef.num_leaves)
+        ]
+    return jax.tree.unflatten(treedef, leaves)
 
 
 def checkpointer(path, *, nupdate=1, keep_last=1):
@@ -59,7 +72,7 @@ def checkpointer(path, *, nupdate=1, keep_last=1):
 
     def update(saved, state):
         n = int(state["n"])
-        file = os.path.join(path, f"state_{n:08d}.msgpack")
+        file = os.path.join(path, f"state_{n:08d}.npz")
         save_checkpoint(
             file,
             dict(

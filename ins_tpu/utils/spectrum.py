@@ -3,7 +3,7 @@
 Re-design of IncompressibleNavierStokes.jl `src/utils.jl:49-143`: dyadic
 binning in 2D (k^-3 inertial slope), linear binning in 3D (k^-5/3). Bins
 are precomputed as a dense (npoint, nk) boolean matrix so the in-loop
-spectrum reduction is one masked matmul — MXU-friendly — instead of the
+spectrum reduction is one masked matmul instead of the
 reference's per-bin index gathers.
 """
 

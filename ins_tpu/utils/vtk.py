@@ -1,6 +1,6 @@
 """Minimal VTK XML writers (RectilinearGrid .vtr + ParaView .pvd).
 
-TPU-native replacement for the reference's WriteVTK.jl path
+Replacement for the reference's WriteVTK.jl path
 (IncompressibleNavierStokes.jl src/processors.jl:204-285). No VTK library
 dependency: the .vtr format is plain XML with base64-encoded binary
 appended data.

@@ -17,6 +17,9 @@ import numpy as np
 
 def warmup(verbose=True):
     import ins_tpu as ins
+    from ins_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     results = {}
     dtypes = [jnp.float32]
@@ -30,8 +33,7 @@ def warmup(verbose=True):
             x = (np.linspace(0.0, 1.0, n + 1),) * D
             bc = ((ins.PeriodicBC(), ins.PeriodicBC()),) * D
             setup = ins.Setup(x=x, boundary_conditions=bc, Re=1e3, dtype=dtype)
-            # jit the initializer: eager complex ops are unsupported on
-            # some TPU runtimes and eager dispatch is slow there anyway
+            # jit the initializer (one dispatch instead of many eager ops)
             u0 = jax.jit(lambda k: ins.random_field(setup, kp=2, rng=k))(
                 jax.random.PRNGKey(0)
             )

@@ -3,7 +3,7 @@
 // The JAX/XLA side owns all device compute; this library owns the host
 // runtime around it: fast base64 encoding for VTK payloads and an
 // asynchronous threaded file writer so simulation loops never block on
-// disk I/O (the TPU-native analogue of the reference's delegation of
+// disk I/O (this framework's analogue of the reference's delegation of
 // native work to C libraries - WriteVTK/FFTW/SuiteSparse; SURVEY.md §2).
 //
 // Build: g++ -O3 -shared -fPIC -std=c++17 -pthread ins_native.cpp -o libins_native.so

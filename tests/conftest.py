@@ -2,8 +2,9 @@ import os
 
 # Must be set before jax import: run tests on a virtual 8-device CPU mesh
 # with float64 enabled (the structure-preserving property tests assert to
-# 1e-12, matching the reference test suite which runs Float64).
-os.environ["JAX_PLATFORMS"] = "cpu"
+# 1e-12, matching the reference test suite which runs Float64).  An
+# explicit JAX_PLATFORMS (e.g. `cuda` for the `gpu`-marked tests) wins.
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 flags = os.environ.get("XLA_FLAGS", "")
 if "xla_force_host_platform_device_count" not in flags:
     os.environ["XLA_FLAGS"] = (
@@ -14,7 +15,6 @@ os.environ.setdefault("JAX_ENABLE_X64", "1")
 import jax  # noqa: E402
 
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp  # noqa: E402
 import pytest  # noqa: E402

@@ -1,7 +1,7 @@
 """Channel (wall-bounded) fast path: parity of the interior-layout roll
-implementation — and later the Pallas kernels — against the ghosted
-slice graph (reference math src/operators.jl:634-690 restricted to
-periodic x/y + Dirichlet z walls)."""
+implementation against the ghosted slice graph (reference math
+src/operators.jl:634-690 restricted to periodic x/y + Dirichlet z
+walls)."""
 
 import jax
 import jax.numpy as jnp
@@ -14,7 +14,7 @@ from ins_tpu.ops._stencil import slc
 
 
 def make_setup(nx=16, ny=12, nz=10, stretched=True, lid=False,
-               dtype=jnp.float64):
+               dtype=jnp.float64, **kw):
     x = (
         np.linspace(0.0, 4 * np.pi, nx + 1),
         np.linspace(0.0, 2 * np.pi, ny + 1),
@@ -28,7 +28,8 @@ def make_setup(nx=16, ny=12, nz=10, stretched=True, lid=False,
         (ins.PeriodicBC(), ins.PeriodicBC()),
         (d, top),
     )
-    return ins.Setup(x=x, boundary_conditions=bc, Re=700.0, dtype=dtype)
+    return ins.Setup(x=x, boundary_conditions=bc, Re=700.0, dtype=dtype,
+                     **kw)
 
 
 def random_state(setup, seed=0):
@@ -139,8 +140,7 @@ def test_channel_step_matches_ghosted(stretched):
     the same FDM projection (f64)."""
     setup = make_setup(nx=12, ny=10, nz=8, stretched=stretched)
     method = ins.RKMethods.RK44()
-    step = cp.make_channel_timestep(setup, method, nrefine=0,
-                                    use_pallas=False)
+    step = cp.make_channel_timestep(setup, method, nrefine=0)
     u0 = _divfree_state(setup)
 
     s_ref, _ = ins.solve_unsteady(
@@ -159,31 +159,6 @@ def test_channel_step_matches_ghosted(stretched):
     err = float(jnp.max(jnp.abs(u_fast - s_ref.u)))
     scale = float(jnp.max(jnp.abs(s_ref.u))) + 1e-30
     assert err / scale < 1e-11, err / scale
-
-
-@pytest.mark.parametrize("stretched", [False, True])
-def test_channel_pallas_matches_roll(stretched):
-    """Pallas (interpret-mode) channel step == roll step, f64-exact."""
-    setup = make_setup(nx=8, ny=8, nz=8, stretched=stretched)
-    method = ins.RKMethods.RK44()
-    step_roll = cp.make_channel_timestep(setup, method, nrefine=0,
-                                         use_pallas=False)
-    step_pl = cp.make_channel_timestep(setup, method, nrefine=0,
-                                       use_pallas=True,
-                                       pallas_interpret=True)
-    u0 = _divfree_state(setup, seed=9)
-    from ins_tpu.time_steppers.step import StepperState
-
-    s0 = StepperState(
-        u=cp.strip_channel(u0), temp=None,
-        t=jnp.asarray(0.0, setup.dtype), n=0,
-    )
-    sa, sb = s0, s0
-    for _ in range(2):
-        sa = step_roll(sa, 1e-3, None)
-        sb = step_pl(sb, 1e-3, None)
-    err = float(jnp.max(jnp.abs(sa.u - sb.u)))
-    assert err < 1e-13, err
 
 
 def test_channel_step_with_bodyforce():
@@ -207,8 +182,7 @@ def test_channel_step_with_bodyforce():
         dtype=jnp.float64,
     )
     method = ins.RKMethods.RK44()
-    step = cp.make_channel_timestep(setup2, method, nrefine=0,
-                                    use_pallas=False)
+    step = cp.make_channel_timestep(setup2, method, nrefine=0)
     u0 = _divfree_state(setup2)
     s_ref, _ = ins.solve_unsteady(
         setup=setup2, ustart=u0, tlims=(0.0, 2e-3), dt=1e-3, method=method,
@@ -249,79 +223,40 @@ def test_solve_unsteady_channel_engaged():
 
 
 @pytest.mark.parametrize("stretched", [False, True])
-def test_channel_hat_matches_pallas(stretched):
-    """Merged-projection hat chain (interpret-mode kernels) == the
-    per-stage Pallas step, f64-exact over 3 steps."""
-    setup = make_setup(nx=8, ny=8, nz=8, stretched=stretched)
+@pytest.mark.parametrize("lid", [False, True])
+@pytest.mark.parametrize("bodyforce", [False, True])
+def test_channel_roll_matches_ghosted_timestep(stretched, lid, bodyforce):
+    """2 RK44 steps of the channel roll step == the ghosted `timestep`
+    with the same FDM projection (f64), with a moving lid, a stretched
+    wall-normal grid and a steady body force."""
+    from ins_tpu.time_steppers.step import StepperState, timestep
+
+    kw = {}
+    if bodyforce:
+        kw = dict(
+            bodyforce=lambda dim, xx, yy, zz, t: (
+                jnp.where(dim == 0, 1.0, 0.0) + 0.0 * xx
+            ),
+            issteadybodyforce=True,
+        )
+    setup = make_setup(nx=8, ny=6, nz=8, stretched=stretched, lid=lid, **kw)
     method = ins.RKMethods.RK44()
-    step_pl = cp.make_channel_timestep(setup, method, nrefine=0,
-                                       use_pallas=True,
-                                       pallas_interpret=True)
-    hat_fns = cp.make_channel_timestep_hat(setup, method, nrefine=0,
-                                           use_pallas=True,
-                                           pallas_interpret=True)
-    assert hat_fns is not None
-    to_hat, step_hat, from_hat = hat_fns
-    u0 = _divfree_state(setup, seed=3)
-    from ins_tpu.time_steppers.step import StepperState
-
-    s0 = StepperState(
-        u=cp.strip_channel(u0), temp=None,
-        t=jnp.asarray(0.0, setup.dtype), n=0,
+    assert cp.channelpath_applicable(setup, method)
+    step = jax.jit(cp.make_channel_timestep(setup, method, nrefine=0))
+    u0 = _divfree_state(setup, seed=13)
+    ps = psolver_fdm_cached(setup)
+    dt = jnp.asarray(1e-3)
+    zero = jnp.asarray(0.0, setup.dtype)
+    ghosted = jax.jit(
+        lambda s: timestep(method, s, dt, setup=setup, psolver=ps)
     )
-    sa = s0
-    h = to_hat(s0)
-    for _ in range(3):
-        sa = step_pl(sa, 1e-3, None)
-        h = step_hat(h, 1e-3, None)
-    sb = from_hat(h)
-    err = float(jnp.max(jnp.abs(sa.u - sb.u)))
-    assert err < 1e-12, err
-    assert float(sb.t) == pytest.approx(float(sa.t))
-    assert int(sb.n) == int(sa.n)
-
-
-def test_channel_hat_with_bodyforce_single_stage():
-    """Hat chain with a steady force and a 1-stage tableau (FE11): the
-    stage-0 recon doubles as the accumulator base."""
-    x = (
-        np.linspace(0.0, 4 * np.pi, 9),
-        np.linspace(0.0, 2 * np.pi, 9),
-        ins.tanh_grid(0.0, 2.0, 8, 1.3),
-    )
-    d = ins.DirichletBC()
-    bc = (
-        (ins.PeriodicBC(), ins.PeriodicBC()),
-        (ins.PeriodicBC(), ins.PeriodicBC()),
-        (d, d),
-    )
-    setup = ins.Setup(
-        x=x, boundary_conditions=bc, Re=700.0,
-        bodyforce=lambda dim, xx, yy, zz, t: (
-            jnp.where(dim == 0, 1.0, 0.0) + 0.0 * xx
-        ),
-        issteadybodyforce=True, dtype=jnp.float64,
-    )
-    method = ins.RKMethods.FE11()
-    step_pl = cp.make_channel_timestep(setup, method, nrefine=0,
-                                       use_pallas=True,
-                                       pallas_interpret=True)
-    hat_fns = cp.make_channel_timestep_hat(setup, method, nrefine=0,
-                                           use_pallas=True,
-                                           pallas_interpret=True)
-    to_hat, step_hat, from_hat = hat_fns
-    u0 = _divfree_state(setup, seed=5)
-    from ins_tpu.time_steppers.step import StepperState
-
-    s0 = StepperState(
-        u=cp.strip_channel(u0), temp=None,
-        t=jnp.asarray(0.0, setup.dtype), n=0,
-    )
-    sa = s0
-    h = to_hat(s0)
+    s_ref = StepperState(u=u0, temp=None, t=zero, n=jnp.asarray(0))
+    s = StepperState(u=cp.strip_channel(u0), temp=None, t=zero,
+                     n=jnp.asarray(0))
     for _ in range(2):
-        sa = step_pl(sa, 1e-3, None)
-        h = step_hat(h, 1e-3, None)
-    sb = from_hat(h)
-    err = float(jnp.max(jnp.abs(sa.u - sb.u)))
-    assert err < 1e-12, err
+        s_ref = ghosted(s_ref)
+        s = step(s, dt, None)
+    u_fast = cp.reghost_channel(s.u, setup)
+    err = float(jnp.max(jnp.abs(u_fast - s_ref.u)))
+    scale = float(jnp.max(jnp.abs(s_ref.u))) + 1e-30
+    assert err / scale < 1e-11, err / scale

@@ -1,13 +1,8 @@
-"""Differentiable fast path: custom-VJP Pallas kernel wrappers
-(`ops/diffkernels`) and the `make_fast_timestep(differentiable=True)`
-training route.
-
-The kernels run in interpreter mode (the production TPU path, minus the
-Mosaic lowering); every adjoint is checked against native JAX reverse
-mode through the roll-graph twin, and the end-to-end step gradient is
-checked against the ghosted slice-graph solver — the reference validates
-its hand-written Enzyme adjoints the same way
-(test/chainrules.jl, src/operators.jl:1621-1910)."""
+"""Differentiable fast path: reverse mode through `make_fast_timestep`
+(a plain roll graph + FFT projection) against the ghosted slice-graph
+solver — the reference validates its hand-written Enzyme adjoints the
+same way (test/chainrules.jl, src/operators.jl:1621-1910) — and the
+`create_loss_post` training route that steps through it."""
 
 import jax
 import jax.flatten_util
@@ -16,112 +11,11 @@ import numpy as np
 import pytest
 
 import ins_tpu as ins
-from ins_tpu.ops.diffkernels import (
-    convdiff_roll,
-    make_convdiff_vjp,
-    make_pressure_correct_vjp,
-    make_smag_force_vjp,
-    make_stage_div_vjp,
-)
-
-DXS = (0.11, 0.23, 0.07)
 
 
 def _rand(shape, seed, dtype=jnp.float32):
     rng = np.random.default_rng(seed)
     return jnp.asarray(rng.standard_normal(shape), dtype)
-
-
-def test_convdiff_vjp_matches_roll():
-    visc = 3e-3
-    f = make_convdiff_vjp(visc, DXS, interpret=True)
-    u = _rand((3, 8, 8, 8), 0)
-    w = _rand((3, 8, 8, 8), 1)
-    g_k = jax.grad(lambda v: jnp.vdot(f(v), w))(u)
-    g_r = jax.grad(lambda v: jnp.vdot(convdiff_roll(v, visc, DXS), w))(u)
-    assert float(jnp.max(jnp.abs(g_k - g_r))) < 1e-5 * float(
-        jnp.max(jnp.abs(g_r))
-    )
-
-
-def test_stage_div_vjp_matches_roll():
-    vol = float(np.prod(DXS))
-    f = make_stage_div_vjp(DXS, interpret=True)
-
-    def roll_twin(base, k, coeff):
-        ut = base + coeff * k
-        div = (
-            sum((ut[a] - jnp.roll(ut[a], 1, a)) / DXS[a] for a in range(3))
-            * vol
-        )
-        return ut, div
-
-    base = _rand((3, 8, 8, 8), 2)
-    k = _rand((3, 8, 8, 8), 3)
-    coeff = jnp.float32(0.37)
-    wu = _rand((3, 8, 8, 8), 4)
-    wd = _rand((8, 8, 8), 5)
-
-    def loss(fn):
-        def inner(b, kk, cc):
-            ut, div = fn(b, kk, cc)
-            return jnp.vdot(ut, wu) + jnp.vdot(div, wd)
-
-        return inner
-
-    g_k = jax.grad(loss(f), argnums=(0, 1, 2))(base, k, coeff)
-    g_r = jax.grad(loss(roll_twin), argnums=(0, 1, 2))(base, k, coeff)
-    for a, b in zip(g_k, g_r):
-        assert float(jnp.max(jnp.abs(a - b))) < 1e-4 * max(
-            1.0, float(jnp.max(jnp.abs(b)))
-        )
-
-
-def test_pressure_correct_vjp_matches_roll():
-    f = make_pressure_correct_vjp(DXS, interpret=True)
-
-    def roll_twin(ut, q):
-        G = jnp.stack(
-            [(jnp.roll(q, -1, a) - q) / DXS[a] for a in range(3)]
-        )
-        return ut - G
-
-    ut = _rand((3, 8, 8, 8), 6)
-    q = _rand((8, 8, 8), 7)
-    w = _rand((3, 8, 8, 8), 8)
-    g_k = jax.grad(
-        lambda a, b: jnp.vdot(f(a, b), w), argnums=(0, 1)
-    )(ut, q)
-    g_r = jax.grad(
-        lambda a, b: jnp.vdot(roll_twin(a, b), w), argnums=(0, 1)
-    )(ut, q)
-    for a, b in zip(g_k, g_r):
-        assert float(jnp.max(jnp.abs(a - b))) < 1e-5 * max(
-            1.0, float(jnp.max(jnp.abs(b)))
-        )
-
-
-def test_smag_force_vjp_matches_roll():
-    from ins_tpu.ops.eddyviscosity import smagorinsky_natural_interior
-
-    bf = _rand((3, 8, 8, 8), 9)
-    f = make_smag_force_vjp(DXS, bodyforce=bf, interpret=True)
-    u = _rand((3, 8, 8, 8), 10)
-    th = jnp.float32(0.17)
-    w = _rand((3, 8, 8, 8), 11)
-    g_k = jax.grad(
-        lambda v, t: jnp.vdot(f(v, t), w), argnums=(0, 1)
-    )(u, th)
-    g_r = jax.grad(
-        lambda v, t: jnp.vdot(
-            smagorinsky_natural_interior(v, t, DXS) + bf, w
-        ),
-        argnums=(0, 1),
-    )(u, th)
-    for a, b in zip(g_k, g_r):
-        assert float(jnp.max(jnp.abs(a - b))) < 2e-5 * max(
-            1.0, float(jnp.max(jnp.abs(b)))
-        )
 
 
 def _setup3(n=8, dtype=jnp.float32, **kw):
@@ -130,55 +24,53 @@ def _setup3(n=8, dtype=jnp.float32, **kw):
     return ins.Setup(x=x, boundary_conditions=bc, Re=50.0, dtype=dtype, **kw)
 
 
-@pytest.mark.parametrize("methodname", ["RK44", "LMWray3"])
+@pytest.mark.parametrize(
+    "methodname",
+    ["RK44", "LMWray3", "FE11", "SSP22", "SSP33", "SSP43", "Wray3",
+     "RK56", "DOPRI6", "HEM5", "NSSP53", "rSSPs3"],
+)
 def test_fast_step_grad_matches_ghosted(methodname):
-    """End-to-end: grad through the differentiable fast step (Pallas
-    kernels in interpret mode + custom VJPs) == grad through the ghosted
-    slice-graph timestep, as functions of the interior velocity."""
+    """End-to-end: grad through the fast step == grad through the ghosted
+    slice-graph timestep, as functions of the interior velocity (f64)."""
     from ins_tpu.ops.fastpath import make_fast_timestep, reghost, strip_ghosts
     from ins_tpu.time_steppers.step import StepperState, timestep
 
     from ins_tpu.time_steppers.methods import LMWray3
 
-    setup = _setup3()
+    setup = _setup3(dtype=jnp.float64)
     method = (
         LMWray3() if methodname == "LMWray3"
         else getattr(ins.RKMethods, methodname)()
     )
     psolver = ins.psolver_spectral(setup)
     dt = 1e-3
-    fast = make_fast_timestep(
-        setup, method, differentiable=True, pallas_interpret=True
-    )
+    fast = make_fast_timestep(setup, method)
     u0 = strip_ghosts(
         jax.jit(lambda k: ins.random_field(setup, kp=2, rng=k))(
             jax.random.PRNGKey(0)
-        ).astype(jnp.float32)
+        )
     )
-    w = _rand(u0.shape, 12)
+    w = _rand(u0.shape, 12, jnp.float64)
+    t0 = jnp.asarray(0.0, jnp.float64)
 
     def loss_fast(ui):
-        s = StepperState(
-            u=ui, temp=None, t=jnp.float32(0.0), n=jnp.asarray(0)
-        )
+        s = StepperState(u=ui, temp=None, t=t0, n=jnp.asarray(0))
         return jnp.vdot(fast(s, dt, None).u, w)
 
     def loss_ghost(ui):
-        s = StepperState(
-            u=reghost(ui), temp=None, t=jnp.float32(0.0), n=jnp.asarray(0)
-        )
+        s = StepperState(u=reghost(ui), temp=None, t=t0, n=jnp.asarray(0))
         out = timestep(method, s, dt, setup=setup, psolver=psolver)
         return jnp.vdot(strip_ghosts(out.u), w)
 
-    vf, gf = jax.value_and_grad(loss_fast)(u0)
-    vg, gg = jax.value_and_grad(loss_ghost)(u0)
-    assert abs(float(vf - vg)) < 2e-4 * max(1.0, abs(float(vg)))
+    vf, gf = jax.jit(jax.value_and_grad(loss_fast))(u0)
+    vg, gg = jax.jit(jax.value_and_grad(loss_ghost))(u0)
+    assert abs(float(vf - vg)) < 1e-10 * max(1.0, abs(float(vg)))
     scale = float(jnp.max(jnp.abs(gg)))
-    assert float(jnp.max(jnp.abs(gf - gg))) < 5e-4 * max(1.0, scale)
+    assert float(jnp.max(jnp.abs(gf - gg))) < 1e-10 * max(1.0, scale)
 
 
 def test_loss_post_fastpath_grads():
-    """`create_loss_post` routes through the differentiable fast path on
+    """`create_loss_post` routes through the fast path on
     periodic-uniform setups; its theta-gradient matches the ghosted
     slice-graph unroll."""
     from ins_tpu.models import cnn, create_loss_post, wrappedclosure

@@ -9,6 +9,8 @@ import pytest
 import ins_tpu as ins
 from ins_tpu.ops.fastpath import fastpath_applicable
 from ins_tpu.ops.pressure import psolver_cg, psolver_spectral
+from ins_tpu.time_steppers.methods import ExplicitRungeKuttaMethod
+from ins_tpu.time_steppers.step import StepperState, timestep
 
 
 def _setup(n=32, D=2, Re=1e3, **kw):
@@ -26,13 +28,6 @@ def test_applicability():
     ps = psolver_spectral(setup)
     assert fastpath_applicable(setup, ins.RKMethods.RK44(), ps)
     assert fastpath_applicable(setup, ins.LMWray3(), ps)
-    # hat carry (step-boundary merge) needs the fused merged chain,
-    # which is TPU-only: on CPU the factory must decline gracefully
-    # (solve_unsteady then scans the plain per-step fast path).
-    from ins_tpu.ops.fastpath import make_fast_timestep_hat
-
-    if jax.default_backend() != "tpu":
-        assert make_fast_timestep_hat(setup, ins.RKMethods.RK44()) is None
     # CG solver: not spectral -> no fast path
     assert not fastpath_applicable(setup, ins.RKMethods.RK44(), psolver_cg(setup))
     # stretched grid -> no fast path
@@ -44,23 +39,44 @@ def test_applicability():
     assert not fastpath_applicable(s2, ins.RKMethods.RK44(), ps)
 
 
-@pytest.mark.parametrize("method", ["rk44", "lmwray3"])
+# Every explicit tableau of `RKMethods` plus LMWray3, by lower-case name.
+EXPLICIT = [
+    n for n in ins.RKMethods.__all__
+    if isinstance(getattr(ins.RKMethods, n)(), ExplicitRungeKuttaMethod)
+]
+METHODS = {n.lower(): getattr(ins.RKMethods, n) for n in EXPLICIT}
+METHODS["lmwray3"] = ins.LMWray3
+
+
+def test_explicit_tableau_count():
+    assert len(EXPLICIT) == 27
+
+
+@pytest.mark.parametrize("method", sorted(METHODS))
 def test_fastpath_matches_ghosted(method):
-    setup = _setup()
-    m = ins.RKMethods.RK44() if method == "rk44" else ins.LMWray3()
+    """solve_unsteady on the fast path == the ghosted float64 stepper
+    (`timestep` with the same spectral solve), for every explicit
+    tableau and LMWray3."""
+    setup = _setup(n=16)
+    m = METHODS[method]()
     ps = psolver_spectral(setup)
     u0 = _u0(setup)
+    dt, nstep = 1e-2, 3
 
     s_fast, _ = ins.solve_unsteady(
-        setup=setup, ustart=u0, tlims=(0.0, 0.05), dt=1e-2, method=m, psolver=ps
+        setup=setup, ustart=u0, tlims=(0.0, nstep * dt), dt=dt, method=m,
+        psolver=ps,
     )
-    # Force the ghosted path with the CG solver at tight tolerance
-    s_ref, _ = ins.solve_unsteady(
-        setup=setup, ustart=u0, tlims=(0.0, 0.05), dt=1e-2, method=m,
-        psolver=psolver_cg(setup, reltol=1e-13),
-    )
-    diff = float(jnp.max(jnp.abs(s_fast.u - s_ref.u)))
-    assert diff < 1e-9, diff
+
+    @jax.jit
+    def ghosted(u):
+        s = StepperState(u=u, temp=None, t=jnp.asarray(0.0), n=jnp.asarray(0))
+        for _ in range(nstep):
+            s = timestep(m, s, jnp.asarray(dt), setup=setup, psolver=ps)
+        return s.u
+
+    diff = float(jnp.max(jnp.abs(s_fast.u - ghosted(u0))))
+    assert diff < 1e-11, diff
     assert s_fast.u.shape == u0.shape  # public state is re-ghosted
 
 
@@ -162,94 +178,66 @@ def test_fastpath_temperature_matches_ghosted(method, dodissipation):
     np.testing.assert_allclose(tn[0], tn[-2])
 
 
-def test_hat_bf16_stream_storage():
-    """bf16 stream storage on the merged hat chain (interpret mode):
-    velocity-like arrays stored bf16, arithmetic/qhat at f32 — the
-    chain runs, the carry holds the requested dtype, and the result
-    tracks the f32 chain to bf16-roundoff accumulation."""
-    import numpy as np
-
-    from ins_tpu.ops.fastpath import make_fast_timestep_hat, strip_ghosts
-    from ins_tpu.time_steppers.step import StepperState
-
-    n = 32
-    x = (np.linspace(0, 2 * np.pi, n + 1),) * 3
-    bc = ((ins.PeriodicBC(), ins.PeriodicBC()),) * 3
-    setup = ins.Setup(x=x, boundary_conditions=bc, Re=1e3,
-                      dtype=jnp.float32)
-    ps = ins.psolver_spectral(setup)
-    u0 = strip_ghosts(jax.jit(
-        lambda k: ins.random_field(setup, kp=3, psolver=ps, rng=k)
-    )(jax.random.PRNGKey(0)))
-    m = ins.RKMethods.RK44()
-    res = {}
-    for sd in (None, jnp.bfloat16):
-        fns = make_fast_timestep_hat(
-            setup, m, stream_dtype=sd, _fused_interpret=True,
-            projection_precision="highest",
-        )
-        assert fns is not None
-        to_hat, step_hat, from_hat = fns
-        h = to_hat(StepperState(
-            u=u0, temp=None, t=jnp.float32(0), n=jnp.asarray(0)
-        ))
-        if sd is not None:
-            assert h.ut.dtype == jnp.bfloat16
-        for _ in range(3):
-            h = step_hat(h, jnp.float32(5e-3), None)
-        s = from_hat(h)
-        assert s.u.dtype == jnp.float32
-        res[sd is None] = s.u
-    err = float(jnp.max(jnp.abs(res[False] - res[True]))
-                / jnp.max(jnp.abs(res[True])))
-    assert np.isfinite(err) and err < 5e-2, err
-
-
-def test_unmerged_bf16_stream_fallback():
-    """bf16 stream storage over the UNMERGED fused chain (the 512^3
-    production path, where the merged chain is VMEM-gated off): the
-    hat builder returns a (cast, step_unmerged, uncast) triple whose
-    carry holds bf16 u; stage kernels upcast windows to f32."""
-    import numpy as np
-
-    from ins_tpu.ops.fastpath import (
-        make_fast_timestep,
-        make_fast_timestep_hat,
-        strip_ghosts,
+@pytest.mark.parametrize("method", ["RK44", "SSP22", "SSP33", "Wray3"])
+@pytest.mark.parametrize("dodissipation", [False, True])
+def test_fastpath_temperature_tableaus(method, dodissipation):
+    """3-D Boussinesq temperature (gravity along z) on the fast path ==
+    the ghosted float64 stepper, over several classic-row tableaus."""
+    n, D = 8, 3
+    x = (np.linspace(0, 2 * np.pi, n + 1),) * D
+    bc = ((ins.PeriodicBC(), ins.PeriodicBC()),) * D
+    te = ins.temperature_equation(
+        Pr=0.71, Ra=1e5, Ge=0.5, boundary_conditions=bc, gdir=2,
+        dodissipation=dodissipation, dtype=jnp.float64,
     )
-    from ins_tpu.time_steppers.step import StepperState
-
-    n = 32
-    x = (np.linspace(0, 2 * np.pi, n + 1),) * 3
-    bc = ((ins.PeriodicBC(), ins.PeriodicBC()),) * 3
-    setup = ins.Setup(x=x, boundary_conditions=bc, Re=1e3,
-                      dtype=jnp.float32)
-    ps = ins.psolver_spectral(setup)
-    u0 = strip_ghosts(jax.jit(
-        lambda k: ins.random_field(setup, kp=3, psolver=ps, rng=k)
-    )(jax.random.PRNGKey(0)))
-    # SSP33 is NOT classic-row, so use_merged is False and the
-    # stream_dtype request takes the unmerged fallback
-    m = ins.RKMethods.SSP33()
-    step32 = make_fast_timestep(setup, m, _fused_interpret=True,
-                                projection_precision="highest")
-    s = StepperState(u=u0, temp=None, t=jnp.float32(0), n=jnp.asarray(0))
-    for _ in range(2):
-        s = step32(s, jnp.float32(5e-3), None)
-    fns = make_fast_timestep_hat(
-        setup, m, stream_dtype=jnp.bfloat16, _fused_interpret=True,
-        projection_precision="highest",
+    setup = ins.Setup(
+        x=x, boundary_conditions=bc, temperature=te, dtype=jnp.float64
     )
-    assert fns is not None, "unmerged bf16 fallback not engaged"
-    to_sd, step_sd, from_sd = fns
-    h = to_sd(StepperState(
-        u=u0, temp=None, t=jnp.float32(0), n=jnp.asarray(0)
-    ))
-    assert h.u.dtype == jnp.bfloat16
-    for _ in range(2):
-        h = step_sd(h, jnp.float32(5e-3), None)
-    assert h.u.dtype == jnp.bfloat16
-    s2 = from_sd(h)
-    assert s2.u.dtype == jnp.float32
-    err = float(jnp.max(jnp.abs(s2.u - s.u)) / jnp.max(jnp.abs(s.u)))
-    assert np.isfinite(err) and err < 5e-2, err
+    m = getattr(ins.RKMethods, method)()
+    ps = psolver_spectral(setup)
+    u0 = ins.random_field(setup, kp=2, rng=jax.random.PRNGKey(4))
+    g = setup.grid
+    xp = np.meshgrid(*[np.asarray(g.xp[d]) for d in range(D)], indexing="ij")
+    t0 = jnp.asarray(np.sin(xp[0]) * np.cos(xp[1]) * np.cos(xp[2]))
+    dt, nstep = 1e-2, 2
+
+    s_fast, _ = ins.solve_unsteady(
+        setup=setup, ustart=u0, tempstart=t0, tlims=(0.0, nstep * dt),
+        dt=dt, method=m, psolver=ps,
+    )
+    s = StepperState(u=u0, temp=t0, t=jnp.asarray(0.0), n=jnp.asarray(0))
+    step = jax.jit(lambda s: timestep(m, s, jnp.asarray(dt), setup=setup,
+                                      psolver=ps))
+    for _ in range(nstep):
+        s = step(s)
+    assert float(jnp.max(jnp.abs(s_fast.u - s.u))) < 1e-11
+    assert float(jnp.max(jnp.abs(s_fast.temp - s.temp))) < 1e-11
+
+
+@pytest.mark.parametrize("method", ["rk44", "lmwray3"])
+def test_fastpath_smagorinsky_bodyforce_3d(method):
+    """3-D natural-form Smagorinsky closure with a steady body force on
+    the fast path == the ghosted float64 stepper."""
+    force = lambda d, x, y, z, t: (d == 0) * jnp.sin(2 * y) * jnp.cos(z)
+    base = _setup(n=8, D=3)
+    setup = _setup(
+        n=8, D=3, bodyforce=force, issteadybodyforce=True,
+        closure_model=ins.smagorinsky_closure_natural(base),
+    )
+    m = METHODS[method]()
+    ps = psolver_spectral(setup)
+    u0 = _u0(base)
+    th = jnp.asarray(0.17, jnp.float64)
+    dt, nstep = 1e-2, 2
+
+    assert fastpath_applicable(setup, m, ps)
+    s_fast, _ = ins.solve_unsteady(
+        setup=setup, ustart=u0, tlims=(0.0, nstep * dt), dt=dt, method=m,
+        psolver=ps, theta=th,
+    )
+    s = StepperState(u=u0, temp=None, t=jnp.asarray(0.0), n=jnp.asarray(0))
+    step = jax.jit(lambda s: timestep(m, s, jnp.asarray(dt), setup=setup,
+                                      psolver=ps, theta=th))
+    for _ in range(nstep):
+        s = step(s)
+    assert float(jnp.max(jnp.abs(s_fast.u - s.u))) < 1e-11

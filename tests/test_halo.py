@@ -1,7 +1,7 @@
 """Explicit shard_map halo-exchange stepping vs single-device references
 (must match to roundoff): 1-D slab and 2-D pencil meshes, pencil-FFT and
-psum-CG pressure solves, Boussinesq temperature coupling, donation
-semantics."""
+psum-CG pressure solves, Boussinesq temperature coupling, steady body
+force, Smagorinsky closure, LMWray3, donation semantics."""
 
 import jax
 import jax.numpy as jnp
@@ -180,97 +180,90 @@ def _setup3d_f32(n=32, **kw):
     )
 
 
-def _fast_ref(setup, u0, T0, method, dt, nsteps):
-    s = StepperState(
-        u=u0, temp=T0, t=jnp.asarray(0.0, jnp.float32), n=jnp.asarray(0)
+def _config(name, n):
+    """(setup, method, with_temp, theta) of a halo test configuration."""
+    tbc = ((ins.PeriodicBC(), ins.PeriodicBC()),) * 3
+    if name == "lmwray3":
+        return _setup3d(n), ins.LMWray3(), False, None
+    if name == "temp_bodyforce":
+        te = ins.temperature_equation(
+            Pr=0.71, Ra=1e5, Ge=0.5, dodissipation=True,
+            boundary_conditions=tbc, gdir=2, dtype=jnp.float64,
+        )
+        x = (np.linspace(0, 2 * np.pi, n + 1),) * 3
+        setup = ins.Setup(
+            x=x, boundary_conditions=tbc, Re=1e3, temperature=te,
+            bodyforce=lambda d, x, y, z, t: (d == 0) * 0.5 * jnp.sin(y),
+            issteadybodyforce=True, dtype=jnp.float64,
+        )
+        return setup, ins.RKMethods.RK44(), True, None
+    assert name == "smagorinsky"
+    x = (np.linspace(0, 2 * np.pi, n + 1),) * 3
+    base = _setup3d(n)
+    setup = ins.Setup(
+        x=x, boundary_conditions=tbc, Re=1e3,
+        closure_model=ins.smagorinsky_closure_natural(base),
+        dtype=jnp.float64,
     )
-    fast = make_fast_timestep(setup, method)
-    for _ in range(nsteps):
-        s = fast(s, jnp.asarray(dt, jnp.float32), jnp.asarray(0.17))
-    return s
+    return setup, ins.RKMethods.RK44(), False, jnp.asarray(0.17)
 
 
 @needs8
-@pytest.mark.parametrize("merge", [False, True])
-@pytest.mark.parametrize("method", ["rk44", "lmwray3"])
-def test_halo_fused_chain_matches_fastpath(method, merge):
-    """The per-shard FUSED Pallas chain (in-kernel tableau accumulation +
-    z/y eigen transforms, all_to_all'd pass B, fused qhat correction) in
-    interpreter mode == the single-chip fast path (f32).  ``merge=True``
-    additionally routes the interior stages through the merged
-    pc+momentum kernel (`pcmsd_hat_halo_3d`: u reconstructed in VMEM,
-    never round-tripping HBM between stages)."""
-    n = 32
-    setup = _setup3d_f32(n)
+@pytest.mark.parametrize("mshape", [(2,), (4,), (8,), (2, 2), (2, 4)])
+@pytest.mark.parametrize("config", ["lmwray3", "temp_bodyforce", "smagorinsky"])
+def test_halo_configs_match_fastpath(mshape, config):
+    """The per-shard shift graph with LMWray3, Boussinesq temperature
+    (+dissipation) with a steady body force, and the natural Smagorinsky
+    closure == the single-device fast path (f64), on 1-D and 2-D meshes."""
+    n = 24
+    setup, m, with_temp, theta = _config(config, n)
     ps = ins.psolver_spectral(setup)
-    m = ins.RKMethods.RK44() if method == "rk44" else ins.LMWray3()
     u0 = strip_ghosts(
-        jax.jit(lambda k: ins.random_field(setup, kp=3, psolver=ps, rng=k))(
-            jax.random.PRNGKey(7)
+        ins.random_field(setup, kp=3, psolver=ps, rng=jax.random.PRNGKey(8))
+    )
+    T0 = None
+    if with_temp:
+        g = setup.grid
+        xp = np.meshgrid(
+            *[np.asarray(g.xp[d])[1:-1] for d in range(3)], indexing="ij"
         )
-    )
-    dt = 5e-3
-    s_ref = _fast_ref(setup, u0, None, m, dt, 3)
+        T0 = jnp.asarray(0.1 * np.sin(xp[0]) * np.cos(xp[1]))
+    dt = 2e-3
+    zero = jnp.asarray(0.0)
+    fast = jax.jit(make_fast_timestep(setup, m))
+    s_ref = StepperState(u=u0, temp=T0, t=zero, n=jnp.asarray(0))
+    for _ in range(3):
+        s_ref = fast(s_ref, jnp.asarray(dt), theta)
 
-    mesh = make_mesh((4,), devices=jax.devices()[:4])
-    step = make_halo_fast_step(
-        setup, m, mesh, pallas_interpret=True,
-        projection_precision="highest", merge=merge,
-    )
-    assert step.fused, "fused chain must be selected on the x-slab cube"
-    assert step.merged == merge
+    ndev = int(np.prod(mshape))
+    mesh = make_mesh(mshape, devices=jax.devices()[:ndev])
+    step = make_halo_fast_step(setup, m, mesh)
     s = StepperState(
-        u=shard_interior(mesh, u0), temp=None,
-        t=jnp.asarray(0.0, jnp.float32), n=jnp.asarray(0),
+        u=shard_interior(mesh, u0),
+        temp=shard_scalar(mesh, T0) if with_temp else None,
+        t=zero, n=jnp.asarray(0),
     )
     for _ in range(3):
-        s = step(s, dt)
-    assert float(jnp.max(jnp.abs(s.u - s_ref.u))) < 5e-6
+        s = step(s, dt, theta)
+    assert float(jnp.max(jnp.abs(s.u - s_ref.u))) < 1e-11
+    if with_temp:
+        assert float(jnp.max(jnp.abs(s.temp - s_ref.temp))) < 1e-11
 
 
 @needs8
-@pytest.mark.parametrize("method", ["rk44", "lmwray3"])
-def test_halo_hat_carry_matches_fastpath(method):
-    """The sharded step-boundary merge (`step.hat`: scan chunks carry a
-    sharded (ut, qhat) HatState; stage 0 reconstructs the previous
-    step's corrected u in VMEM via the RECON base) == the single-chip
-    fast path (f32) — the final correction only materializes at
-    `from_hat`."""
-    n = 32
-    setup = _setup3d_f32(n)
-    ps = ins.psolver_spectral(setup)
-    m = ins.RKMethods.RK44() if method == "rk44" else ins.LMWray3()
-    u0 = strip_ghosts(
-        jax.jit(lambda k: ins.random_field(setup, kp=3, psolver=ps, rng=k))(
-            jax.random.PRNGKey(11)
-        )
-    )
-    dt = 5e-3
-    s_ref = _fast_ref(setup, u0, None, m, dt, 3)
-
-    mesh = make_mesh((4,), devices=jax.devices()[:4])
-    step = make_halo_fast_step(
-        setup, m, mesh, pallas_interpret=True,
-        projection_precision="highest", merge=True,
-    )
-    assert step.hat is not None, "hat carry must be available when merged"
-    to_hat, step_hat, from_hat = step.hat
-    s = StepperState(
-        u=shard_interior(mesh, u0), temp=None,
-        t=jnp.asarray(0.0, jnp.float32), n=jnp.asarray(0),
-    )
-    h = to_hat(s)
-    for _ in range(3):
-        h = step_hat(h, dt, 0.17)
-    s = from_hat(h)
-    assert int(s.n) == 3
-    assert float(jnp.max(jnp.abs(s.u - s_ref.u))) < 5e-6
+def test_halo_smagorinsky_needs_three_planes():
+    """The per-shard Smagorinsky stencil reaches 3 planes: thinner
+    shards are refused up front."""
+    setup, m, _, _ = _config("smagorinsky", 16)
+    mesh = make_mesh((8,), devices=jax.devices()[:8])
+    with pytest.raises(ValueError, match="3"):
+        make_halo_fast_step(setup, m, mesh)
 
 
 @needs8
-def test_solve_unsteady_halo_hat_integration():
-    """solve_unsteady(halo=True) fixed-dt scan chunks ride the sharded
-    hat carry and agree with per-step halo stepping."""
+def test_solve_unsteady_halo_scan_matches_step():
+    """solve_unsteady(halo=True) fixed-dt scan chunks agree with per-step
+    halo stepping (f32)."""
     n = 32
     setup = _setup3d_f32(n)
     ps = ins.psolver_spectral(setup)
@@ -281,14 +274,9 @@ def test_solve_unsteady_halo_hat_integration():
     dt = 5e-3
     sfin, _ = ins.solve_unsteady(
         setup=setup, ustart=u0, tlims=(0.0, 4 * dt), dt=dt,
-        mesh=mesh, halo=True, halo_interpret=True,
+        mesh=mesh, halo=True,
     )
-    ufin = sfin.u
-    # reference: per-step halo stepping (merged chain, no hat carry)
-    m = ins.RKMethods.RK44()
-    step = make_halo_fast_step(
-        setup, m, mesh, pallas_interpret=True, merge=True,
-    )
+    step = make_halo_fast_step(setup, ins.RKMethods.RK44(), mesh)
     s = StepperState(
         u=shard_interior(mesh, strip_ghosts(u0)), temp=None,
         t=jnp.asarray(0.0, jnp.float32), n=jnp.asarray(0),
@@ -296,123 +284,8 @@ def test_solve_unsteady_halo_hat_integration():
     for _ in range(4):
         s = step(s, dt)
     assert (
-        float(jnp.max(jnp.abs(ufin[:, 1:-1, 1:-1, 1:-1] - s.u))) < 1e-5
+        float(jnp.max(jnp.abs(sfin.u[:, 1:-1, 1:-1, 1:-1] - s.u))) < 1e-5
     )
-
-
-@needs8
-def test_halo_fused_temperature_bodyforce():
-    """Fused halo chain with Boussinesq temperature (+dissipation) and a
-    steady body force == the single-chip fast path (f32)."""
-    n = 32
-    tbc = ((ins.PeriodicBC(), ins.PeriodicBC()),) * 3
-    te = ins.temperature_equation(
-        Pr=0.71, Ra=1e5, Ge=0.5, dodissipation=True,
-        boundary_conditions=tbc, gdir=2, dtype=jnp.float32,
-    )
-    bodyforce = lambda d, x, y, z, t: (d == 0) * 0.5 * jnp.sin(y)
-    setup = _setup3d_f32(
-        n, temperature=te, bodyforce=bodyforce, issteadybodyforce=True
-    )
-    ps = ins.psolver_spectral(setup)
-    m = ins.RKMethods.RK44()
-    u0 = strip_ghosts(
-        jax.jit(lambda k: ins.random_field(setup, kp=3, psolver=ps, rng=k))(
-            jax.random.PRNGKey(8)
-        )
-    )
-    g = setup.grid
-    xp = np.meshgrid(
-        *[np.asarray(g.xp[d])[1:-1] for d in range(3)], indexing="ij"
-    )
-    T0 = jnp.asarray(
-        0.1 * np.sin(xp[0]) * np.cos(xp[1]), jnp.float32
-    )
-    dt = 2e-3
-    s_ref = _fast_ref(setup, u0, T0, m, dt, 3)
-
-    mesh = make_mesh((4,), devices=jax.devices()[:4])
-    step = make_halo_fast_step(
-        setup, m, mesh, pallas_interpret=True, projection_precision="highest"
-    )
-    assert step.fused
-    s = StepperState(
-        u=shard_interior(mesh, u0), temp=shard_scalar(mesh, T0),
-        t=jnp.asarray(0.0, jnp.float32), n=jnp.asarray(0),
-    )
-    for _ in range(3):
-        s = step(s, dt)
-    assert float(jnp.max(jnp.abs(s.u - s_ref.u))) < 5e-6
-    assert float(jnp.max(jnp.abs(s.temp - s_ref.temp))) < 5e-6
-
-
-@needs8
-@pytest.mark.parametrize("merge", [False, True])
-def test_halo_fused_smagorinsky(merge):
-    """Fused halo chain with the natural-form Smagorinsky closure (the
-    north-star LES config, sharded) == the single-chip fast path (f32);
-    ``merge=True`` runs the widened-ghost merged kernel."""
-    n = 32
-    base = _setup3d_f32(n)
-    setup = _setup3d_f32(
-        n, closure_model=ins.smagorinsky_closure_natural(base)
-    )
-    ps = ins.psolver_spectral(setup)
-    m = ins.RKMethods.RK44()
-    u0 = strip_ghosts(
-        jax.jit(lambda k: ins.random_field(setup, kp=3, psolver=ps, rng=k))(
-            jax.random.PRNGKey(9)
-        )
-    )
-    dt = 2e-3
-    s_ref = _fast_ref(setup, u0, None, m, dt, 3)
-
-    mesh = make_mesh((4,), devices=jax.devices()[:4])
-    step = make_halo_fast_step(
-        setup, m, mesh, pallas_interpret=True,
-        projection_precision="highest", merge=merge,
-    )
-    assert step.fused and step.merged == merge
-    s = StepperState(
-        u=shard_interior(mesh, u0), temp=None,
-        t=jnp.asarray(0.0, jnp.float32), n=jnp.asarray(0),
-    )
-    for _ in range(3):
-        s = step(s, dt, theta=jnp.asarray(0.17))
-    assert float(jnp.max(jnp.abs(s.u - s_ref.u))) < 5e-6
-
-
-@needs8
-@pytest.mark.parametrize("mshape", [(2, 2), (2, 4)])
-def test_halo_2d_mesh_pallas(mshape):
-    """Per-shard Pallas kernels on 2-D pencil meshes (x/y halo-padded
-    blocks, wrapped edge planes discarded), interpreter mode == the
-    single-chip fast path (f32)."""
-    n = 32
-    setup = _setup3d_f32(n)
-    ps = ins.psolver_spectral(setup)
-    m = ins.RKMethods.RK44()
-    u0 = strip_ghosts(
-        jax.jit(lambda k: ins.random_field(setup, kp=3, psolver=ps, rng=k))(
-            jax.random.PRNGKey(10)
-        )
-    )
-    dt = 5e-3
-    s_ref = _fast_ref(setup, u0, None, m, dt, 3)
-
-    ndev = int(np.prod(mshape))
-    mesh = make_mesh(mshape, devices=jax.devices()[:ndev])
-    step = make_halo_fast_step(
-        setup, m, mesh, pallas_interpret=True, fused=False
-    )
-    assert step.pallas and not step.fused
-    s = StepperState(
-        u=shard_interior(mesh, u0), temp=None,
-        t=jnp.asarray(0.0, jnp.float32), n=jnp.asarray(0),
-    )
-    for _ in range(3):
-        s = step(s, dt)
-    assert float(jnp.max(jnp.abs(s.u - s_ref.u))) < 5e-6
 
 
 @needs8
@@ -480,39 +353,3 @@ def test_halo_no_donation_by_default():
     # both live: stepping twice from the same state must give the same u
     s1b = step(s0, 1e-3)
     assert float(jnp.max(jnp.abs(s1.u - s1b.u))) == 0.0
-
-
-@needs8
-@pytest.mark.parametrize("mshape", [(2, 4), (2, 2)])
-@pytest.mark.parametrize("method", ["rk44", "lmwray3"])
-def test_halo_fused_chain_2d_matches_fastpath(method, mshape):
-    """The 2-D pencil FUSED chain (stage kernel with the rectangular
-    zero-padded y-basis slice emitting partial y-modes, psum_scatter /
-    all_to_all transform schedule, shard-local pass B) in interpreter
-    mode == the single-chip fast path (f32)."""
-    n = 32
-    setup = _setup3d_f32(n)
-    ps = ins.psolver_spectral(setup)
-    m = ins.RKMethods.RK44() if method == "rk44" else ins.LMWray3()
-    u0 = strip_ghosts(
-        jax.jit(lambda k: ins.random_field(setup, kp=3, psolver=ps, rng=k))(
-            jax.random.PRNGKey(13)
-        )
-    )
-    dt = 5e-3
-    s_ref = _fast_ref(setup, u0, None, m, dt, 3)
-
-    ndev = int(np.prod(mshape))
-    mesh = make_mesh(mshape, devices=jax.devices()[:ndev])
-    step = make_halo_fast_step(
-        setup, m, mesh, pallas_interpret=True,
-        projection_precision="highest",
-    )
-    assert step.fused, "2-D fused chain must be selected on the pencil cube"
-    s = StepperState(
-        u=shard_interior(mesh, u0), temp=None,
-        t=jnp.asarray(0.0, jnp.float32), n=jnp.asarray(0),
-    )
-    for _ in range(3):
-        s = step(s, dt)
-    assert float(jnp.max(jnp.abs(s.u - s_ref.u))) < 5e-6

@@ -304,7 +304,7 @@ def test_cnn_chunked_matches_direct():
 
 
 def test_cnn_fold_conv_matches_plain():
-    """The tap-folded conv formulation (MXU contraction-dim fill;
+    """The tap-folded conv formulation (wider contraction;
     cnn.py module docstring) is algebraically identical to the plain
     circular conv — exact at f32 compute, ~bf16-rounded at bf16."""
     from ins_tpu.models.cnn import _DN, _fold_conv
